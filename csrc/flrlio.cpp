@@ -1,4 +1,4 @@
-// Native host runtime for the TPU FL/RL compression framework.
+// Native host runtime for the FL/RL compression framework.
 //
 // Re-expresses the reference's host-side C++ (file I/O: /root/reference/
 // src/file_io.cu; CPU codec: src/fl/fl_cpu.cu) as an original,
@@ -36,7 +36,7 @@ inline int required_bits(uint8_t v) {
 // Per-frame fold: concatenate wpf fields of 4*b bits each into nbytes
 // output bytes (word-granular fast path for full frames — their payload
 // is 16*b bytes, a multiple of 4; the global tail frame takes the byte
-// path).  Shared by the flat and pack-2 field layouts.
+// path).
 inline void fold_frame(const uint32_t* in, int wpf, int b4, uint8_t* out,
                        int64_t nbytes) {
   uint64_t acc = 0;
@@ -105,22 +105,6 @@ inline void unfold_frame(const uint8_t* in, int64_t nbytes, int wpf,
     acc >>= b4;
     accbits = accbits > b4 ? accbits - b4 : 0;
   }
-}
-
-// Pack-2 field layout (ops/fl_pallas.py): fields are stored two-per-u32
-// — within each tile of tile_r 128-lane word-rows, packed word r holds
-// field row r in its low 16 bits and field row r + tile_r/2 in its high
-// 16 bits.  Viewed as little-endian u16, field word j (flat index) lives
-// at u16 index p2_idx16(j).  Frames never straddle rows (128 % wpf == 0),
-// so a frame's wpf fields are consecutive u16s with stride 2.
-inline int64_t p2_idx16(int64_t j, int tile_r) {
-  const int64_t row = j >> 7;
-  const int64_t tile = row / tile_r;
-  const int64_t half = tile_r >> 1;
-  const int64_t r = row - tile * tile_r;
-  const int64_t hi = r >= half;
-  const int64_t prow = tile * half + (hi ? r - half : r);
-  return 2 * (prow * 128 + (j & 127)) + hi;
 }
 
 }  // namespace
@@ -304,7 +288,8 @@ int flrl_fl_decode(const uint8_t* bits, int64_t frames,
 }
 
 // ---------------------------------------------------------------------------
-// Field fold/unfold — the host half of the TPU fast path.
+// Field fold/unfold — the host half of the field route (frame lengths
+// that are not a multiple of 32 bytes).
 //
 // The device emits "fields": per frame of L bytes, L/4 u32 values, field q
 // holding the 4·b-bit spread of elements 4q..4q+3 (b = frame bit width).
@@ -341,42 +326,6 @@ int64_t flrl_fl_fold(const uint32_t* fields, const uint8_t* bits, int64_t n,
   return values_size;
 }
 
-// Pack-2 variant: fields arrive in the packed layout (see p2_idx16).
-// Caller contract: every frame width <= 4 (else -6).  tile_r is the pack
-// layout unit used by the device kernel.
-int64_t flrl_fl_fold_p2(const uint16_t* packed16, const uint8_t* bits,
-                        int64_t n, int frame_len, int tile_r,
-                        uint8_t* values_out) {
-  if (n < 0 || frame_len <= 0 || frame_len % 8 != 0 || tile_r <= 0 ||
-      tile_r % 16 != 0)
-    return -1;
-  if (n == 0) return 0;
-  const int64_t frames = (n + frame_len - 1) / frame_len;
-  const int wpf = frame_len / 4;
-
-  int64_t* offs = new int64_t[frames + 1];
-  offs[0] = 0;
-  for (int64_t f = 0; f < frames; ++f) {
-    if (bits[f] > 4) { delete[] offs; return -6; }
-    const int64_t lo = f * frame_len;
-    const int64_t hi = lo + frame_len < n ? lo + frame_len : n;
-    offs[f + 1] =
-        offs[f] + (static_cast<int64_t>(bits[f]) * (hi - lo) + 7) / 8;
-  }
-  const int64_t values_size = offs[frames];
-
-#pragma omp parallel for schedule(static)
-  for (int64_t f = 0; f < frames; ++f) {
-    uint32_t tmp[128];
-    const int64_t i16 = p2_idx16(f * static_cast<int64_t>(wpf), tile_r);
-    for (int q = 0; q < wpf; ++q) tmp[q] = packed16[i16 + 2 * q];
-    fold_frame(tmp, wpf, 4 * bits[f], values_out + offs[f],
-               offs[f + 1] - offs[f]);
-  }
-  delete[] offs;
-  return values_size;
-}
-
 // Inverse: dense stream -> fields (zero-filled beyond the tail).  Returns 0.
 // bits_size bounds the widths array (untrusted container input: a header
 // claiming a huge inputSize must not drive reads past the bits buffer).
@@ -406,49 +355,6 @@ int flrl_fl_unfold(const uint8_t* values, int64_t values_size,
     const uint64_t fmask = (b4 >= 64) ? ~0ULL : ((1ULL << b4) - 1);
     unfold_frame(values + offs[f], offs[f + 1] - offs[f], wpf, b4, fmask,
                  fields_out + f * wpf);
-  }
-  delete[] offs;
-  return 0;
-}
-
-// Pack-2 variant of unfold: writes the packed field layout directly (the
-// host->device transfer then moves N/2 bytes).  packed16_out must be
-// ZERO-initialized by the caller and sized to the device padding (frames
-// beyond ceil(n/L) stay zero).  Widths > 4 are rejected (-6); threads
-// write disjoint u16 objects, so the frame-parallel loop is race-free.
-int flrl_fl_unfold_p2(const uint8_t* values, int64_t values_size,
-                      const uint8_t* bits, int64_t bits_size, int64_t n,
-                      int frame_len, int tile_r, uint16_t* packed16_out) {
-  if (n < 0 || frame_len <= 0 || frame_len % 8 != 0 || tile_r <= 0 ||
-      tile_r % 16 != 0)
-    return -1;
-  if (n == 0) return 0;
-  const int64_t frames = (n + frame_len - 1) / frame_len;
-  const int wpf = frame_len / 4;
-  if (frames > bits_size) return -4;
-
-  int64_t* offs = new int64_t[frames + 1];
-  offs[0] = 0;
-  for (int64_t f = 0; f < frames; ++f) {
-    const int64_t lo = f * frame_len;
-    const int64_t hi = lo + frame_len < n ? lo + frame_len : n;
-    if (bits[f] < 1 || bits[f] > 8) { delete[] offs; return -5; }
-    if (bits[f] > 4) { delete[] offs; return -6; }
-    offs[f + 1] =
-        offs[f] + (static_cast<int64_t>(bits[f]) * (hi - lo) + 7) / 8;
-  }
-  if (offs[frames] > values_size) { delete[] offs; return -2; }
-
-#pragma omp parallel for schedule(static)
-  for (int64_t f = 0; f < frames; ++f) {
-    uint32_t tmp[128];
-    const int b4 = 4 * bits[f];
-    const uint64_t fmask = (1ULL << b4) - 1;
-    unfold_frame(values + offs[f], offs[f + 1] - offs[f], wpf, b4, fmask,
-                 tmp);
-    const int64_t i16 = p2_idx16(f * static_cast<int64_t>(wpf), tile_r);
-    for (int q = 0; q < wpf; ++q)
-      packed16_out[i16 + 2 * q] = static_cast<uint16_t>(tmp[q]);
   }
   delete[] offs;
   return 0;

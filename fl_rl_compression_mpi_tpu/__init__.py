@@ -1,6 +1,6 @@
-"""TPU-native lossless compression framework.
+"""Lossless FL/RL compression on GPUs, in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the CUDA +
+A from-scratch JAX/XLA re-design of the capabilities of the CUDA +
 MPI + NCCL reference ``Polyphemus980/fl-rl-compression-MPI``:
 
 * **FL** — fixed-length bit-packing: per-128-byte-frame minimal bit-width

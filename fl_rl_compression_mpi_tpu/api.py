@@ -3,8 +3,8 @@
 The CLI mirrors the reference's command surface
 (``/root/reference/src/main.cu:72-169``); library users get the same
 method table as plain functions — bytes in/out or file in/out — with
-every backend (``fl``, ``fl-cpu``, ``fl-dist``, ``fl-ici``, ``rl``,
-``rl-cpu``, ``rl-dist`` + the reference aliases ``fl-mpi``/``fl-nccl``)
+every backend (``fl``, ``fl-cpu``, ``fl-dist``, ``fl-nccl``, ``rl``,
+``rl-cpu``, ``rl-dist`` + the aliases ``fl-mpi``/``fl-ici``)
 selectable by name:
 
     import fl_rl_compression_mpi_tpu as flrl

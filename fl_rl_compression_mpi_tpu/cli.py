@@ -9,21 +9,22 @@ its parser rejects (``README.md:25-26`` vs ``args_parser.cu:30-53``).
 
 Methods:
 
-==========  ================================================================
-``fl``      FL on one TPU chip (reference ``fl`` GPU path)
-``fl-cpu``  FL on host via the NumPy golden (reference ``fl-cpu``)
-``fl-dist`` FL over all chips, rank-ordered host merge (``fl-mpi`` analog)
-``fl-ici``  FL over all chips, on-device all-gather merge (``fl-nccl``
-            analog — the collective rides ICI instead of NCCL)
-``rl``      RL on one TPU chip (spec-only in the reference)
-``rl-cpu``  RL on host via the NumPy golden
-``rl-dist`` RL over all chips (per-shard runs, boundary runs split)
-==========  ================================================================
+===========  ===============================================================
+``fl``       FL on one GPU (reference ``fl`` GPU path)
+``fl-cpu``   FL on host via the native codec (reference ``fl-cpu``)
+``fl-dist``  FL over all devices, rank-ordered host merge (``fl-mpi``
+             analog)
+``fl-nccl``  FL over all devices, on-device all-gather merge (reference
+             ``fl-nccl``; XLA hands the collective to NCCL)
+``rl``       RL on one GPU (spec-only in the reference)
+``rl-cpu``   RL on host via the native codec
+``rl-dist``  RL over all devices (per-shard runs, boundary runs split)
+===========  ===============================================================
 
-``fl-mpi``/``fl-nccl`` are accepted as compatibility aliases.  ``fl-shmem``
-(an enum value with no implementation in the reference, silently degrading
-to CPU there — ``main.cu:90-92``) maps to ``fl-dist`` with a notice instead
-of silently changing backends.
+``fl-mpi`` and ``fl-ici`` are accepted as aliases of ``fl-dist`` and
+``fl-nccl``.  ``fl-shmem`` (an enum value with no implementation in the
+reference, silently degrading to CPU there — ``main.cu:90-92``) maps to
+``fl-dist`` with a notice instead of silently changing backends.
 
 Unlike the reference, decompression is available distributed for every
 method (the reference decompresses ``fl`` on one GPU and everything else on
@@ -33,23 +34,24 @@ one CPU thread, ``main.cu:131-169``).
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
 
 from . import container
+from .models.registry import ALIASES as _ALIASES
 from .ops.bitpack import FRAME_LENGTH
 from .utils.timers import timed
 
-_ALIASES = {"fl-mpi": "fl-dist", "fl-nccl": "fl-ici"}
-_METHODS = ("fl", "fl-cpu", "fl-dist", "fl-ici", "rl", "rl-cpu", "rl-dist",
-            "fl-mpi", "fl-nccl", "fl-shmem")
+_METHODS = ("fl", "fl-cpu", "fl-dist", "fl-nccl", "rl", "rl-cpu", "rl-dist",
+            "fl-mpi", "fl-ici", "fl-shmem")
 
 
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="fl_rl_compression_mpi_tpu",
-        description="TPU-native FL/RL lossless compression",
+        description="FL/RL lossless compression on GPUs (JAX)",
         epilog="example: python -m fl_rl_compression_mpi_tpu c fl in.bin "
                "out.fl")
     p.add_argument("operation", choices=("c", "d"),
@@ -65,7 +67,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", metavar="LOGDIR", default=None,
                    help="capture a jax.profiler trace of the codec phase")
     p.add_argument("--devices", type=int, default=None,
-                   help="number of chips for distributed methods "
+                   help="number of devices for distributed methods "
                         "(default: all)")
     p.add_argument("--stream-chunk-mb", type=int, default=None,
                    metavar="MB",
@@ -133,7 +135,7 @@ def _run_multihost(args) -> int:
 
 def _resolve(method: str) -> str:
     if method == "fl-shmem":
-        print("[INFO] fl-shmem: no SHMEM on TPU; using fl-dist "
+        print("[INFO] fl-shmem: no SHMEM path; using fl-dist "
               "(the reference silently degraded this to CPU)",
               file=sys.stderr)
         return "fl-dist"
@@ -178,15 +180,20 @@ def _decompress(args) -> None:
         save_file(args.output, out)
 
 
+_CHECKOUT_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
 def _enable_compile_cache() -> None:
     """Persistent XLA compilation cache: CLI invocations are one process per
-    run (like the reference binary), so without this every run pays the full
-    TPU compile.  Opt out with JAX_COMPILATION_CACHE_DIR=''."""
-    import os
-
+    run (like the reference binary), so without it every run pays the full
+    compile.  ``JAX_COMPILATION_CACHE_DIR`` names the directory when set
+    (an empty value disables the cache); otherwise a fixed ``.jax_cache/``
+    at the checkout root (a fixed path, since the path is part of the
+    cache key)."""
     import jax
-    cache = os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                           os.path.expanduser("~/.cache/flrl_jax"))
+    cache = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if cache is None:
+        cache = os.path.join(_CHECKOUT_ROOT, ".jax_cache")
     if cache:
         jax.config.update("jax_compilation_cache_dir", cache)
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
@@ -212,12 +219,9 @@ def main(argv=None) -> int:
         # the default path never pays for backend initialization early.
         # Multihost runs print it inside _run_multihost instead: touching
         # the backend here would break jax.distributed.initialize.
-        try:
-            import jax
-            print(f"[INFO] backend={jax.default_backend()} "
-                  f"devices={jax.device_count()}", file=sys.stderr)
-        except Exception as e:  # pragma: no cover
-            print(f"[INFO] backend unavailable: {e}", file=sys.stderr)
+        import jax
+        print(f"[INFO] backend={jax.default_backend()} "
+              f"devices={jax.device_count()}", file=sys.stderr)
     try:
         if args.coordinator is not None:
             return _run_multihost(args)

@@ -4,7 +4,7 @@ The reference dispatches methods with switch statements in ``main.cu``
 (``/root/reference/src/main.cu:72-169``); here every backend is a uniform
 ``Codec`` entry so the CLI, tests and benchmarks enumerate one table.  The
 two codec families (FL, RL) × backends (device kernel, native C++ host,
-NumPy golden, distributed host-merge, distributed ICI-merge) are this
+NumPy golden, distributed host-merge, distributed all-gather merge) are this
 framework's "model zoo".
 """
 
@@ -66,7 +66,7 @@ def _fl_dist(data, frame_length=128, devices=None, **_):
     return dist.compress_fl(data, dist.make_mesh(devices), frame_length)
 
 
-def _fl_ici(data, frame_length=128, devices=None, **_):
+def _fl_nccl(data, frame_length=128, devices=None, **_):
     from ..parallel import dist
     return dist.compress_fl_ici(data, dist.make_mesh(devices), frame_length)
 
@@ -116,24 +116,24 @@ def _rl_dist_d(comp, devices=None, **_):
 
 
 CODECS: dict[str, Codec] = {c.name: c for c in [
-    Codec("fl", "fl", "FL on one TPU chip (device field kernels + host "
-          "fold)", _fl, _fl_d),
+    Codec("fl", "fl", "FL on one GPU (device widths + dense placement)",
+          _fl, _fl_d),
     Codec("fl-cpu", "fl", "FL on host (native C++/OpenMP, NumPy fallback)",
           _fl_cpu, _fl_cpu_d),
-    Codec("fl-dist", "fl", "FL over all chips, rank-ordered host merge "
+    Codec("fl-dist", "fl", "FL over all devices, rank-ordered host merge "
           "(reference fl-mpi analog)", _fl_dist, _fl_dist_d,
           distributed=True),
-    Codec("fl-ici", "fl", "FL over all chips, on-device all-gather merge "
-          "(reference fl-nccl analog)", _fl_ici, _fl_dist_d,
+    Codec("fl-nccl", "fl", "FL over all devices, on-device all-gather "
+          "merge (reference fl-nccl)", _fl_nccl, _fl_dist_d,
           distributed=True),
-    Codec("rl", "rl", "RL on one TPU chip", _rl, _rl_d),
+    Codec("rl", "rl", "RL on one GPU", _rl, _rl_d),
     Codec("rl-cpu", "rl", "RL on host (native C++/OpenMP, NumPy fallback)",
           _rl_cpu, _rl_cpu_d),
-    Codec("rl-dist", "rl", "RL over all chips (per-shard runs)",
+    Codec("rl-dist", "rl", "RL over all devices (per-shard runs)",
           _rl_dist, _rl_dist_d, distributed=True),
 ]}
 
-ALIASES = {"fl-mpi": "fl-dist", "fl-nccl": "fl-ici"}
+ALIASES = {"fl-mpi": "fl-dist", "fl-ici": "fl-nccl"}
 
 
 def resolve(name: str) -> Codec:

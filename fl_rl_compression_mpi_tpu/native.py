@@ -24,7 +24,6 @@ _SO_PATH = os.path.join(_PKG_DIR, "_native", "libflrlio.so")
 _SRC_PATH = os.path.join(os.path.dirname(_PKG_DIR), "csrc", "flrlio.cpp")
 
 _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
-_u16p = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
 _u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
 
 
@@ -61,14 +60,6 @@ class Native:
         lib.flrl_fl_unfold.argtypes = [_u8p, ctypes.c_int64, _u8p,
                                        ctypes.c_int64, ctypes.c_int64,
                                        ctypes.c_int, _u32p]
-        lib.flrl_fl_fold_p2.restype = ctypes.c_int64
-        lib.flrl_fl_fold_p2.argtypes = [_u16p, _u8p, ctypes.c_int64,
-                                        ctypes.c_int, ctypes.c_int, _u8p]
-        lib.flrl_fl_unfold_p2.restype = ctypes.c_int
-        lib.flrl_fl_unfold_p2.argtypes = [_u8p, ctypes.c_int64, _u8p,
-                                          ctypes.c_int64, ctypes.c_int64,
-                                          ctypes.c_int, ctypes.c_int,
-                                          _u16p]
         lib.flrl_rl_encode.restype = ctypes.c_int64
         lib.flrl_rl_encode.argtypes = [_u8p, ctypes.c_int64, _u8p, _u8p]
         lib.flrl_rl_decode.restype = ctypes.c_int64
@@ -171,56 +162,6 @@ class Native:
         if rc != 0:
             raise ValueError(f"fl_unfold: corrupt stream (rc={rc})")
         return fields
-
-    def fl_fold_p2(self, packed: np.ndarray, bits: np.ndarray, n: int,
-                   frame_length: int, tile_r: int) -> np.ndarray:
-        """Pack-2 fields (u32, two 16-bit fields per word — the layout of
-        ``fl_pallas.fl_encode_fields_packed_pallas``) + bits → byte-exact
-        packed stream.  Every frame width must be <= 4."""
-        packed = np.ascontiguousarray(packed, np.uint32)
-        bits = np.ascontiguousarray(bits, np.uint8)
-        if n == 0:
-            return np.zeros(0, np.uint8)
-        frames = -(-n // frame_length)
-        wpf = frame_length // 4
-        tile_words = tile_r * 128
-        need = -(-(frames * wpf) // tile_words) * (tile_words // 2)
-        if bits.size < frames or packed.size < need:
-            raise ValueError("fl_fold_p2: undersized bits/packed arrays")
-        values = np.empty(n + frame_length, np.uint8)
-        vsz = self._lib.flrl_fl_fold_p2(packed.view(np.uint16), bits, n,
-                                        frame_length, tile_r, values)
-        if vsz < 0:
-            raise ValueError(f"fl_fold_p2: bad arguments (rc={vsz})")
-        return values[:vsz].copy()
-
-    def fl_unfold_p2(self, values: np.ndarray, bits: np.ndarray, n: int,
-                     frame_length: int, tile_r: int,
-                     packed_words: int) -> np.ndarray:
-        """Packed stream + bits → pack-2 fields (u32[packed_words],
-        zero beyond the live frames).  Every frame width must be <= 4
-        (host callers check ``bits.max()`` before dispatching here)."""
-        values = np.ascontiguousarray(values, np.uint8)
-        bits = np.ascontiguousarray(bits, np.uint8)
-        if n == 0:
-            return np.zeros(0, np.uint32)
-        frames = -(-n // frame_length)
-        wpf = frame_length // 4
-        tile_words = tile_r * 128
-        need = -(-(frames * wpf) // tile_words) * (tile_words // 2)
-        if bits.size < frames:
-            raise ValueError(
-                "fl_unfold_p2: corrupt container (bits array shorter "
-                f"than frame count: {bits.size} < {frames})")
-        if packed_words < need:
-            raise ValueError("fl_unfold_p2: undersized output buffer")
-        out = np.zeros(packed_words, np.uint32)
-        rc = self._lib.flrl_fl_unfold_p2(values, values.size, bits,
-                                         bits.size, n, frame_length,
-                                         tile_r, out.view(np.uint16))
-        if rc != 0:
-            raise ValueError(f"fl_unfold_p2: corrupt stream (rc={rc})")
-        return out
 
     def rl_encode(self, data: np.ndarray):
         data = np.ascontiguousarray(data, np.uint8)

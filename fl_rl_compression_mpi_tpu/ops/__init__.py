@@ -1,1 +1,1 @@
-"""Codec kernels: NumPy goldens, JAX device paths, Pallas TPU kernels."""
+"""Codecs: NumPy goldens and the JAX device paths."""

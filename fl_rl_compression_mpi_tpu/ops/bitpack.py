@@ -9,10 +9,10 @@ exactly the semantics of the reference CPU codec
 CUDA kernels (``/root/reference/src/fl/fl_gpu.cu:700-755``).
 
 The reference scatters each *input* byte with sub-word atomics.  That is
-anti-idiomatic on TPU; instead we precompute, once per width ``b``, the static
+avoidable: instead we precompute, once per width ``b``, the static
 pattern describing every *output* byte as an OR of shifted input bytes (and
 every decoded byte as a mask/shift of two packed bytes).  With static tables
-the pack/unpack becomes a branch-free gather + shift + OR that XLA/Mosaic can
+the pack/unpack becomes a branch-free gather + shift + OR that XLA can
 vectorize, and no two writers ever share an output byte — the atomics
 disappear by construction.
 

@@ -1,12 +1,13 @@
 """Field-form glue: host fold/unfold + end-to-end fields-path codecs.
 
-The FL fast path splits work between device and host (rationale in
-`fl_jax.py`): the device runs :func:`fl_jax.fl_encode_fields` /
-:func:`fl_jax.fl_decode_fields` (purely elementwise, memory-bandwidth
-bound); the host folds fields into the byte-exact reference stream (and
-unfolds back).  Fold/unfold use the native OpenMP library when available
-(`csrc/flrlio.cpp`), else the vectorized NumPy fallbacks below — identical
-output either way, pinned by the differential tests.
+For frame lengths that are not a multiple of 32 bytes, the FL codec splits
+work between device and host (see `fl_jax.py`): the device runs
+:func:`fl_jax.fl_encode_fields` / :func:`fl_jax.fl_decode_fields`
+(elementwise, memory-bandwidth bound); the host folds fields into the
+byte-exact reference stream (and unfolds back).  Fold/unfold use the
+native OpenMP library when available (`csrc/flrlio.cpp`), else the
+vectorized NumPy fallbacks below — identical output either way, pinned by
+the differential tests.
 """
 
 from __future__ import annotations
@@ -73,66 +74,17 @@ def unfold(values: np.ndarray, bits: np.ndarray, n: int,
 
 
 # ---------------------------------------------------------------------------
-# Pack-2 layout (two 16-bit fields per u32 when every width <= 4; layout
-# defined in ops/fl_pallas.py — tile halves of ``tile_r`` word-rows).
-# Halves the device<->host field transfer and the host fold's read.
-# ---------------------------------------------------------------------------
-
-def unpack_p2(packed: np.ndarray, nw: int, tile_r: int) -> np.ndarray:
-    """Pack-2 fields → flat u32[nw] fields (NumPy)."""
-    q = tile_r // 2
-    p = np.asarray(packed).reshape(-1, q, 128)
-    out = np.empty((p.shape[0], tile_r, 128), np.uint32)
-    out[:, :q] = p & 0xFFFF
-    out[:, q:] = p >> 16
-    return out.reshape(-1)[:nw]
-
-
-def pack_p2(fields: np.ndarray, tile_r: int) -> np.ndarray:
-    """Flat fields (length a tile multiple) → pack-2 layout (NumPy)."""
-    q = tile_r // 2
-    f = np.asarray(fields, np.uint32).reshape(-1, tile_r, 128)
-    return (f[:, :q] | (f[:, q:] << np.uint32(16))).reshape(-1)
-
-
-def fold_p2(packed: np.ndarray, bits: np.ndarray, n: int,
-            frame_length: int, tile_r: int) -> np.ndarray:
-    """Pack-2 fields + bits → byte-exact packed stream."""
-    nat = get_native()
-    if nat is not None:
-        return nat.fl_fold_p2(packed, bits, n, frame_length, tile_r)
-    frames = -(-n // frame_length)
-    return fold(unpack_p2(packed, frames * (frame_length // 4), tile_r),
-                bits, n, frame_length)
-
-
-def unfold_p2(values: np.ndarray, bits: np.ndarray, n: int,
-              frame_length: int, tile_r: int,
-              packed_words: int) -> np.ndarray:
-    """Packed stream + bits → pack-2 fields u32[packed_words] (zero
-    beyond the live frames).  Caller guarantees max(bits) <= 4."""
-    nat = get_native()
-    if nat is not None:
-        return nat.fl_unfold_p2(values, bits, n, frame_length, tile_r,
-                                packed_words)
-    fields = unfold(values, bits, n, frame_length)
-    buf = np.zeros(2 * packed_words, np.uint32)
-    buf[: fields.size] = fields
-    return pack_p2(buf, tile_r)[:packed_words]
-
-
-# ---------------------------------------------------------------------------
-# End-to-end host APIs — thin aliases of the canonical ones in fl_jax
-# (device fields kernel + host fold), kept for discoverability.
+# End-to-end host APIs — thin aliases of the canonical ones in fl_jax,
+# kept for discoverability.
 # ---------------------------------------------------------------------------
 
 def encode(data: np.ndarray, frame_length: int = FRAME_LENGTH,
-           bucket_frames: int = 8192):
+           bucket_frames: int = fl_jax.BUCKET_FRAMES):
     return fl_jax.encode(data, frame_length, bucket_frames)
 
 
 def decode(output_size: int, bits: np.ndarray, values: np.ndarray,
            frame_length: int = FRAME_LENGTH,
-           bucket_frames: int = 8192) -> np.ndarray:
+           bucket_frames: int = fl_jax.BUCKET_FRAMES) -> np.ndarray:
     return fl_jax.decode(output_size, bits, values, frame_length,
                          bucket_frames)

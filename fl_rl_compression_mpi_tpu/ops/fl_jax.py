@@ -1,49 +1,48 @@
-"""TPU-native FL (fixed-length) codec — device kernels.
+"""FL (fixed-length) codec on the device, in plain JAX.
 
 Semantics are specified by the golden NumPy implementation (`fl_numpy.py`)
 and, transitively, by the reference CPU codec
-(``/root/reference/src/fl/fl_cpu.cu``).  Nothing here translates the
-reference CUDA kernels (``fl_gpu.cu:648-755``): the thread-per-byte +
-sub-word-atomic style is anti-idiomatic on TPU.
+(``/root/reference/src/fl/fl_cpu.cu``).  The computation takes the shape of
+the reference's CUDA kernels (``fl_gpu.cu:648-755``) without their atomics
+(SURVEY.md §7):
 
-Design, driven by measurement (experiments/exp3, exp4 on the real chip):
-
-* XLA lowers every fine-grained gather/scatter to the TPU scalar core
-  (~35-130M indices/s — orders of magnitude below the VPU), and any array
-  whose minor dimension is < 128 is tile-padded up to 16×.  Only
-  elementwise ops, reshapes, reductions and cumsums run at HBM bandwidth.
-* The codec therefore keeps all *bit manipulation* on device in a purely
-  elementwise form — the **field form** — and leaves the ragged
-  *placement* (data-dependent byte offsets) to the host's native fold
-  (``csrc/flrlio.cpp``), which overlaps with the file I/O it feeds.
-
-Field form: the input is viewed as little-endian u32 words (4 elements per
-word).  For a frame of ``L`` bytes at width ``b``, word ``q`` becomes field
-``q`` — the 4·b-bit *spread* ``e0 | e1<<b | e2<<2b | e3<<3b`` (exact in
-u32: 3b+8 ≤ 32).  A frame's packed payload is exactly its fields'
-low 4·b-bit windows concatenated — so fold/unfold is a funnel-shift
-concatenation, memcpy-class work.
-
-The per-frame width is the reference's ``max(1, 8 - clz(max byte))``
-(``fl_cpu.cu:39-47``), computed via an OR-reduce (bitlen(OR) == bitlen(max)
-for unsigned bytes) — the segmented-max replacement for the reference's
-shared-memory ``atomicMaxUint8t`` tree (``fl_gpu.cu:648-685``).
+* **Widths.** The per-frame width is the reference's ``max(1, 8 - clz(max
+  byte))`` (``fl_cpu.cu:39-47``), computed from an integer OR-reduce
+  (bitlen(OR) == bitlen(max) for unsigned bytes) in place of the
+  reference's shared-memory ``atomicMax`` tree.
+* **Field form.** The input is viewed as little-endian u32 words (4
+  elements per word).  For a frame at width ``b``, word ``q`` becomes field
+  ``q``, the 4·b-bit *spread* ``e0 | e1<<b | e2<<2b | e3<<3b`` (exact in
+  u32: 3b+8 ≤ 32).  A frame's packed payload is its fields' low 4·b-bit
+  windows concatenated.
+* **Dense placement** (``frame_length % 32 == 0``, the reference's 128
+  included).  A group of 8 fields packs to exactly ``b`` whole u32 words, so
+  a frame packs to ``L·b/32`` words and no two frames share a word.  An
+  exclusive cumsum of those word counts places every frame, and one scatter
+  with unique indices writes the container's packed stream: no atomics, a
+  deterministic result.  Decode gathers the same words back.  Only the
+  compressed bytes cross the host link in either direction.
+* **Field route** (other frame lengths).  The device computes fields and
+  the host places bytes with the native fold/unfold (``csrc/flrlio.cpp``).
 
 Shapes are static (XLA compiles once per padded-size bucket); the true
 length ``n`` is a traced scalar so arbitrary sizes reuse one executable.
-Index math is int32: a single shard is capped at 2 GiB, side-stepping the
-reference's ``int`` overflow defect (``file_io.cu:46-51``) by design —
-multi-chip sharding keeps shards small.
+Index math is int32, so one dispatch is capped at 1 GiB
+(:data:`MAX_DEVICE_CHUNK`); larger inputs run as a pipeline of
+frame-aligned chunks with byte-identical output (SURVEY.md finding #3),
+side-stepping the reference's ``int`` overflow (``file_io.cu:46-51``).
 """
 
 from __future__ import annotations
 
 import functools
+from collections import deque
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..utils.timers import stage
 from .bitpack import FRAME_LENGTH, MAX_WIDTH
 
 
@@ -57,12 +56,7 @@ def _required_bits(frame_max: jax.Array) -> jax.Array:
 
 
 def _word_tail_mask(nw: int, n: jax.Array) -> jax.Array:
-    """u32 mask zeroing bytes at global index ≥ n (word-granular).
-
-    Select over the 5 possible masks instead of a variable-amount shift:
-    vector-variable shifts are an order of magnitude slower than constant
-    ones on the VPU (experiments/FINDINGS.md).
-    """
+    """u32 mask zeroing bytes at global index ≥ n (word-granular)."""
     widx = jnp.arange(nw, dtype=jnp.int32)
     rem = jnp.clip(n - widx * 4, 0, 4)
     m = jnp.uint32(0)
@@ -72,8 +66,7 @@ def _word_tail_mask(nw: int, n: jax.Array) -> jax.Array:
 
 
 def _broadcast_frames(x: jax.Array, wpf: int) -> jax.Array:
-    """Per-frame value → per-word value, flat (broadcast + reshape — NOT
-    jnp.repeat, which lowers to a scalar-core gather)."""
+    """Per-frame value → per-word value, flat."""
     F = x.shape[0]
     return jnp.broadcast_to(x[:, None], (F, wpf)).reshape(F * wpf)
 
@@ -102,9 +95,8 @@ def fl_encode_fields(words: jax.Array, n: jax.Array,
     frame_or = o.reshape(F, wpf).max(axis=1).astype(jnp.int32)
     bits = _required_bits(frame_or)
 
-    # Spread with constant shifts per width variant + select (variable
-    # vector shifts are slow on the VPU; constant-shift chains are free —
-    # experiments/FINDINGS.md).  b == 8 is the identity spread.
+    # One constant-shift spread per width, selected by the frame's width
+    # (b == 8 is the identity spread).
     bw = _broadcast_frames(bits, wpf)
     e1 = (w >> 8) & jnp.uint32(0xFF)
     e2 = (w >> 16) & jnp.uint32(0xFF)
@@ -141,19 +133,146 @@ def fl_decode_fields(fields: jax.Array, bits: jax.Array, n: jax.Array,
 
 
 # ---------------------------------------------------------------------------
-# Host-facing whole-array APIs (pad → device kernel → host fold/unfold).
+# Dense placement (frame_length % 32 == 0).
+# ---------------------------------------------------------------------------
+
+def dense_route(frame_length: int) -> bool:
+    """Whether frames of this length pack to whole u32 words (L·b/32 words
+    at every width b), so the device places the packed stream itself."""
+    return frame_length % 32 == 0
+
+
+def _pack_terms(b: int):
+    """(out_slot j, field k, shift) terms for packing one 8-field group at
+    width b: field k's 4b bits live at group-bit offset 4bk; out word j
+    holds group bits [32j, 32j+32)."""
+    terms = []
+    for k in range(8):
+        lo = 4 * b * k
+        hi = lo + 4 * b
+        for j in range(lo // 32, (hi - 1) // 32 + 1):
+            terms.append((j, k, lo - 32 * j))
+    return terms
+
+
+def _pack_groups(g: jax.Array, b: int) -> jax.Array:
+    """Funnel-pack u32[..., 8] fields of width-b frames → u32[..., b]."""
+    cols = [None] * b
+    for j, k, shift in _pack_terms(b):
+        t = g[..., k] << shift if shift >= 0 else g[..., k] >> -shift
+        cols[j] = t if cols[j] is None else cols[j] | t
+    return jnp.stack(cols, axis=-1)
+
+
+def _unpack_groups(p: jax.Array, b: int) -> jax.Array:
+    """Inverse funnel: u32[..., b] packed words → u32[..., 8] fields."""
+    fb = 4 * b
+    mask = jnp.uint32((1 << fb) - 1)
+    out = []
+    for k in range(8):
+        j, s = divmod(fb * k, 32)
+        v = p[..., j] >> s
+        if s + fb > 32:
+            v = v | (p[..., j + 1] << (32 - s))
+        out.append(v & mask)
+    return jnp.stack(out, axis=-1)
+
+
+def _frame_word_offsets(bits: jax.Array, n: jax.Array, frame_length: int):
+    """Words per live frame (L·b/32; 0 beyond ``ceil(n/L)``) and their
+    exclusive cumsum — the frame's word offset in the packed stream."""
+    F = bits.shape[0]
+    live = (jnp.arange(F, dtype=jnp.int32)
+            < (n.astype(jnp.int32) + frame_length - 1) // frame_length)
+    fw = jnp.where(live, bits.astype(jnp.int32) * (frame_length // 32), 0)
+    return fw, jnp.cumsum(fw) - fw
+
+
+@functools.partial(jax.jit, static_argnames=("frame_length",))
+def fl_encode_dense(words: jax.Array, n: jax.Array,
+                    frame_length: int = FRAME_LENGTH):
+    """Encode to the container's packed stream, placed on the device.
+
+    ``words``: u32[NW] as for :func:`fl_encode_fields`.  Returns ``(bits
+    u8[F], dense u32[NW], total_words i32)``: the first ``total_words``
+    words of ``dense`` are the packed stream (the tail frame's last word
+    holds zero bits past ``n``); the rest is zero.
+    """
+    L = frame_length
+    assert dense_route(L)
+    wpf, G = L // 4, L // 32
+    nw = words.shape[0]
+    bits, fields = fl_encode_fields(words, n, frame_length=L)
+    F = bits.shape[0]
+    b = bits.astype(jnp.int32)[:, None]
+    groups = fields.reshape(F, G, 8)
+    packed = fields.reshape(F, wpf)                     # width 8: identity
+    for w in range(1, MAX_WIDTH):
+        pw = _pack_groups(groups, w).reshape(F, G * w)
+        pw = jnp.pad(pw, ((0, 0), (0, wpf - G * w)))
+        packed = jnp.where(b == w, pw, packed)
+    fw, woff = _frame_word_offsets(bits, n, L)
+    j = jnp.arange(wpf, dtype=jnp.int32)[None, :]
+    # Words past a frame's count go to distinct out-of-range slots, so
+    # every index is unique and the scatter needs no atomics.
+    spill = nw + jnp.arange(F * wpf, dtype=jnp.int32).reshape(F, wpf)
+    idx = jnp.where(j < fw[:, None], woff[:, None] + j, spill)
+    dense = jnp.zeros(nw, jnp.uint32).at[idx.reshape(-1)].set(
+        packed.reshape(-1), mode="drop", unique_indices=True)
+    return bits, dense, jnp.sum(fw)
+
+
+@functools.partial(jax.jit, static_argnames=("frame_length",))
+def fl_decode_dense(dense: jax.Array, bits: jax.Array, n: jax.Array,
+                    frame_length: int = FRAME_LENGTH) -> jax.Array:
+    """Inverse of :func:`fl_encode_dense`: packed stream u32[V] (any length;
+    words past V read as zero) + bits u8[F] → decoded words u32[F·L/4]
+    (bytes ≥ n zeroed)."""
+    L = frame_length
+    assert dense_route(L)
+    wpf, G = L // 4, L // 32
+    F = bits.shape[0]
+    fw, woff = _frame_word_offsets(bits, n, L)
+    j = jnp.arange(wpf, dtype=jnp.int32)[None, :]
+    packed = dense.at[woff[:, None] + j].get(mode="fill", fill_value=0)
+    packed = jnp.where(j < fw[:, None], packed, jnp.uint32(0))
+    b = bits.astype(jnp.int32)[:, None, None]
+    fields = packed.reshape(F, G, 8)                    # width 8: identity
+    for w in range(1, MAX_WIDTH):
+        fields = jnp.where(
+            b == w, _unpack_groups(packed[:, : G * w].reshape(F, G, w), w),
+            fields)
+    return fl_decode_fields(fields.reshape(-1), bits, n, frame_length=L)
+
+
+# ---------------------------------------------------------------------------
+# Host-facing APIs (pad → device → exact-size container bytes).
 # ---------------------------------------------------------------------------
 
 # Single device dispatch cap: index math inside the kernels is int32 (the
 # design cap documented above).  Larger inputs are processed in
 # frame-aligned chunks — byte-identical output by the frame-alignment
-# invariant (SURVEY.md finding #3) — instead of replicating the
-# reference's >2 GB overflow crash (file_io.cu:46-51) in spirit.
+# invariant (SURVEY.md finding #3).
 MAX_DEVICE_CHUNK = 1 << 30
+
+
+# Default padding bucket: inputs pad to a multiple of 2^13 frames (1 MiB at
+# the reference's frame length), so nearby sizes share one executable.
+BUCKET_FRAMES = 1 << 13
 
 
 def _device_cap(frame_length: int) -> int:
     return (MAX_DEVICE_CHUNK // frame_length) * frame_length
+
+
+def _check_frame_length(frame_length: int) -> None:
+    # Every formulation here (the field spread, the closed-form constant
+    # container) assumes full frames are byte-aligned; the CLI enforces
+    # the same rule.
+    if frame_length % 8:
+        raise ValueError(
+            f"frame_length must be a multiple of 8, got {frame_length}")
+
 
 def pad_to_frames(n: int, frame_length: int = FRAME_LENGTH,
                   bucket: int = 1) -> int:
@@ -164,84 +283,29 @@ def pad_to_frames(n: int, frame_length: int = FRAME_LENGTH,
     return frames * frame_length
 
 
-def _use_pallas(frame_length: int, nw: int) -> bool:
-    from . import fl_pallas
-    return (jax.default_backend() == "tpu"
-            and fl_pallas._supported(frame_length)
-            and nw % fl_pallas.TILE_WORDS == 0)
+def frame_value_bytes(bits: np.ndarray, n: int,
+                      frame_length: int = FRAME_LENGTH) -> np.ndarray:
+    """Packed bytes of each of the ``ceil(n/L)`` frames (only the last
+    frame may be partial) — the reference decoder's offset scan input
+    (``fl_gpu.cu:596-601``)."""
+    frames = -(-n // frame_length)
+    counts = np.minimum(
+        n - np.arange(frames, dtype=np.int64) * frame_length, frame_length)
+    return (bits[:frames].astype(np.int64) * counts + 7) // 8
 
 
-def _use_pack2(frame_length: int, nw: int) -> bool:
-    """Pack-2 fields (two 16-bit fields per u32; ops/fl_pallas.py):
-    valid when every frame width is <= 4, halving the device<->host
-    field transfer and the host fold/unfold traffic.  The encoder
-    SPECULATES (widths are only known after the kernel): on a miss it
-    re-runs the base kernel — one extra pass, ~1% of the transfer the
-    hit halves.  FLRL_NO_PACK=1 disables."""
-    import os
-
-    from . import fl_pallas
-    return (_use_pallas(frame_length, nw)
-            and nw % (fl_pallas.PACK_TILE_R * 128) == 0
-            and os.environ.get("FLRL_NO_PACK") != "1")
+def values_size(bits: np.ndarray, n: int,
+                frame_length: int = FRAME_LENGTH) -> int:
+    """Exact packed-stream size of an ``n``-byte input with widths ``bits``."""
+    return int(frame_value_bytes(bits, n, frame_length).sum())
 
 
-def _use_dense(frame_length: int, nw: int) -> bool:
-    """Dense-on-device encode: the packed byte stream is assembled on the
-    TPU (no host fold) and only ratio·N bytes cross device→host.
-    FLRL_NO_DENSE=1 falls back to fields+fold."""
-    import os
-
-    from . import fl_dense_pallas
-    return (jax.default_backend() == "tpu" and frame_length == 128
-            and nw % (fl_dense_pallas.DENSE_TILE_R * 128) == 0
-            and os.environ.get("FLRL_NO_DENSE") != "1")
-
-
-def _use_dense_dec(frame_length: int, nw: int) -> bool:
-    """Dense-on-device decode: the packed stream goes up as-is (ratio·N
-    host→device, no host unfold) and is unpacked on the TPU."""
-    import os
-
-    from . import fl_dense_pallas
-    return (jax.default_backend() == "tpu" and frame_length == 128
-            and nw % (fl_dense_pallas.DENSE_DEC_TILE_R * 128) == 0
-            and os.environ.get("FLRL_NO_DENSE") != "1")
-
-
-def encode_fields_device(words: jax.Array, n: jax.Array,
-                         frame_length: int = FRAME_LENGTH):
-    """Backend-selected field encode (Pallas on TPU when shapes allow,
-    else the XLA kernel).  Returns ``(bits_dev, fields)`` where
-    ``bits_dev`` is ``(F,)`` u8 (XLA) or ``(rows, 128/wpf)`` u8 (Pallas);
-    flatten with ``np.asarray(...).reshape(-1)[:frames]`` on host."""
-    if _use_pallas(frame_length, words.shape[0]):
-        from . import fl_pallas
-        return fl_pallas.fl_encode_fields_pallas(words, n, frame_length)
-    return fl_encode_fields(words, n, frame_length=frame_length)
-
-
-def prep_decode_bits(bits_flat: np.ndarray, nw: int,
-                     frame_length: int = FRAME_LENGTH) -> np.ndarray:
-    """Shape a host widths array (u8[F_pad]) for :func:`decode_fields_device`
-    — (rows, 128/wpf) for the Pallas kernel (reshaping flat→padded on
-    device is a scalar-core relayout), flat for the XLA kernel."""
-    if _use_pallas(frame_length, nw):
-        wpf = frame_length // 4
-        return np.ascontiguousarray(bits_flat).reshape(nw // 128,
-                                                       128 // wpf)
-    return bits_flat
-
-
-def decode_fields_device(fields: jax.Array, bits: jax.Array, n: jax.Array,
-                         frame_length: int = FRAME_LENGTH) -> jax.Array:
-    """Backend-selected field decode.  ``bits`` must be pre-shaped with
-    :func:`prep_decode_bits` (flat u8[F_pad] for XLA, 2-D for Pallas)."""
-    if _use_pallas(frame_length, fields.shape[0]):
-        from . import fl_pallas
-        return fl_pallas.fl_decode_fields_pallas(fields, bits, n,
-                                                 frame_length)
-    return fl_decode_fields(fields, bits, n, frame_length=frame_length)
+def transfer_words(k: int, nw: int) -> int:
+    """Words to move for a ``k``-word prefix of an ``nw``-word buffer,
+    rounded up to 1/32 of the buffer so that transfers compile a bounded
+    number of shapes (at most 3% more than ``k``)."""
+    step = max(nw // 32, 1)
+    return min(nw, max(1, -(-k // step)) * step)
 
 
 def _host_constant_byte(data: np.ndarray) -> int | None:
@@ -285,12 +349,11 @@ def host_constant_decode_probe(bits: np.ndarray, values: np.ndarray,
                                n: int,
                                frame_length: int = FRAME_LENGTH
                                ) -> int | None:
-    """Decode-side constant-container check (round 4b), shared by the
-    single-chip and distributed host decoders: returns the constant
-    byte when the container is EXACTLY the closed form (uniform widths
-    + repeating frame pattern, verified by a cheap prefix probe and
-    then an exact full compare), else None — a mismatch falls through
-    to the device paths."""
+    """Decode-side constant-container check, shared by the single-device
+    and distributed host decoders: returns the constant byte when the
+    container is EXACTLY the closed form (uniform widths + repeating frame
+    pattern, verified by a cheap prefix probe and then an exact full
+    compare), else None — a mismatch falls through to the device path."""
     frames = -(-n // frame_length)
     if (frame_length % 8 or not frames or not values.size
             or bits.size < frames):
@@ -319,9 +382,9 @@ def host_constant_decode_probe(bits: np.ndarray, values: np.ndarray,
 def host_identity_decode_probe(bits: np.ndarray, values: np.ndarray,
                                n: int,
                                frame_length: int = FRAME_LENGTH):
-    """Width-8 IDENTITY check (round 5), shared by every host decoder:
-    packing bytes at width 8 is the identity, so an all-8 widths header
-    means the payload IS the output — one memcpy, no device work (the
+    """Width-8 IDENTITY check, shared by every host decoder: packing bytes
+    at width 8 is the identity, so an all-8 widths header means the
+    payload IS the output — one memcpy, no device work (the
     incompressible-stream class).  Returns the decoded bytes or None."""
     frames = -(-n // frame_length)
     if not frames or bits.size < frames or values.size < n:
@@ -333,510 +396,109 @@ def host_identity_decode_probe(bits: np.ndarray, values: np.ndarray,
 
 
 def encode(data: np.ndarray, frame_length: int = FRAME_LENGTH,
-           bucket_frames: int = 8192):
+           bucket_frames: int = BUCKET_FRAMES):
     """NumPy in → (bits u8[F], values u8[V]) out, exact sizes, bit-exact
-    with `fl_numpy.encode` (device fields kernel + host fold).
-
-    MAINTENANCE: the dispatch chain below (constant → dense
-    uniform/plan/general → pack2 → fields) is mirrored by the
-    software-pipelined :func:`encode_chunks` (which trades the serial
-    per-phase [TIMER] stages and synchronous flag checks for overlap).
-    A change to either dispatch MUST be applied to both — the round-5
-    review caught real drift (pack2, timers)."""
-    from .fields import fold
-
-    if frame_length % 8:
-        # Every downstream formulation (the field spread, the dense
-        # kernels, the closed-form constant container) assumes full
-        # frames are byte-aligned; a non-multiple-of-8 frame length
-        # would previously hit an assert deep in the field kernel — or,
-        # worse, silently emit a wrong constant container.  Reject at
-        # the API boundary (the CLI enforces the same rule).
-        raise ValueError(
-            f"frame_length must be a multiple of 8, got {frame_length}")
+    with `fl_numpy.encode`.  A one-chunk run of :func:`encode_chunks`
+    (inputs above the device cap run as a pipeline of chunks)."""
     data = np.asarray(data, np.uint8)
+    parts = list(encode_chunks([data], frame_length, bucket_frames))
+    if len(parts) == 1:
+        return parts[0]
+    return (np.concatenate([p[0] for p in parts]),
+            np.concatenate([p[1] for p in parts]))
+
+
+def decode(output_size: int, bits: np.ndarray, values: np.ndarray,
+           frame_length: int = FRAME_LENGTH,
+           bucket_frames: int = BUCKET_FRAMES) -> np.ndarray:
+    """NumPy in → decoded u8[output_size].  A one-chunk run of
+    :func:`decode_chunks`."""
+    parts = list(decode_chunks([(output_size, bits, values)], frame_length,
+                               bucket_frames))
+    return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+
+# ---------------------------------------------------------------------------
+# Software-pipelined chunked codec.
+#
+# JAX dispatch is asynchronous: ``device_put`` and kernel calls return
+# immediately and only ``device_get`` blocks.  These generators use that to
+# overlap chunk k+1's H2D + kernel with chunk k's D2H + host work — a
+# pipeline whose wall time approaches max(phase) per chunk instead of the
+# reference's fully serialized Σ(phases) (``fl_gpu.cu:341,348,367``
+# synchronizes after every stage).  The per-stage [TIMER] lines (enabled by
+# ``--timers``) mirror the reference's ``gpuCompress``/``gpuDecompress``
+# timers (``fl_gpu.cu:317-415``, ``:573-637``); enabling them fences each
+# stage, which serializes the pipeline.  Frame-aligned chunks make the
+# outputs byte-identical to a whole-buffer encode (SURVEY.md finding #3).
+# ---------------------------------------------------------------------------
+
+def _encode_submit(data: np.ndarray, frame_length: int, bucket_frames: int):
     n = data.size
     if n == 0:
-        return np.zeros(0, np.uint8), np.zeros(0, np.uint8)
-    # Whole-stream CONSTANT fast path (round 4b): the FL container of a
-    # constant stream is closed-form for EVERY width (the payload is a
-    # per-frame byte cycle), so one exact host verify pass replaces the
-    # whole H2D + kernel + D2H round trip — on the host API this
-    # dominates even the device constant kernels (which remain the
-    # device-resident production path: bench chains, device pipelines).
+        return ("ready", (np.zeros(0, np.uint8), np.zeros(0, np.uint8)))
     c = _host_constant_byte(data)
     if c is not None:
-        from ..utils.timers import stage
-        with stage("Compression", n):      # --timers stage parity
-            return _constant_container(c, n, frame_length)
-    cap = _device_cap(frame_length)
-    if n > cap:
-        # software-pipelined over cap-sized frame-aligned chunks: chunk
-        # k+1's H2D + kernel dispatch overlaps chunk k's D2H + host
-        # work (round 5 — the reference driver is fully serialized,
-        # fl_gpu.cu:341,348,367)
-        bits_parts, values_parts = [], []
-        for b, v in encode_chunks(
-                (data[off:off + cap] for off in range(0, n, cap)),
-                frame_length, bucket_frames):
-            bits_parts.append(b)
-            values_parts.append(v)
-        return np.concatenate(bits_parts), np.concatenate(values_parts)
+        # closed-form container: one exact host verify pass replaces the
+        # whole device round trip
+        with stage("Compression", n):
+            return ("ready", _constant_container(c, n, frame_length))
     npad = pad_to_frames(n, frame_length, bucket_frames)
     buf = np.zeros(npad, np.uint8)
     buf[:n] = data
+    h2d = []
+    with stage("Copy input data to device", npad, result=h2d):
+        words = jnp.asarray(buf.view(np.uint32))
+        h2d.append(words)
+    krn = []
+    with stage("Compression", n, result=krn):
+        if dense_route(frame_length):
+            out = fl_encode_dense(words, jnp.int32(n),
+                                  frame_length=frame_length)
+        else:
+            out = fl_encode_fields(words, jnp.int32(n),
+                                   frame_length=frame_length)
+        krn += list(out)
+    return ("dev", n, out)
+
+
+def _encode_drain(entry, frame_length: int):
+    if entry[0] == "ready":
+        return entry[1]
+    _, n, out = entry
     frames = -(-n // frame_length)
-    # Per-stage [TIMER] instrumentation (no-op unless the CLI enabled it):
-    # stage names mirror the reference's per-phase timer lines inside
-    # gpuCompress (/root/reference/src/fl/fl_gpu.cu:317-415).
-    from ..utils.timers import stage
-    if _use_dense(frame_length, npad // 4):
-        from . import fl_dense_pallas
-        h2d = []
-        with stage("Copy input data to TPU", npad, result=h2d):
-            wordsj = jnp.asarray(buf.view(np.uint32))
-            h2d.append(wordsj)
-        nfj = jnp.int32(frames)
-        # speculative globally-uniform dispatch, HOST-controlled: the
-        # probe is a free NumPy pass (data is in host memory), the
-        # device flag is authoritative, and a miss re-runs the general
-        # kernel (exp46/exp47: stripped single-width kernels pair
-        # ~25% faster, but in-jit lax.switch/cond compositions copy the
-        # branch results and lose the win — so the branch lives here)
-        Ru = fl_dense_pallas.DENSE_UNIFORM_TILE_R
-        fbp = (fl_dense_pallas.host_probe_uniform_b(buf, Ru)
-               if npad % (Ru * 512) == 0 else None)
-        if fbp is not None:
-            # per-width tile choice (chip A/B in uniform_tile_r); the
-            # probe proved masks at the BASE tile — re-check at the
-            # upgraded tile's Rb scale before switching (a missing mask
-            # would hit an assert, not a fallback)
-            Ru2 = fl_dense_pallas.uniform_tile_r(fbp, npad // 512)
-            if (Ru2 != Ru
-                    and fl_dense_pallas.uniform_kernel_available(fbp,
-                                                                 Ru2)):
-                Ru = Ru2
-        dense = None
-        krn = []
-        with stage("Compression", n, result=krn):
-            # (Whole-stream constant inputs never reach here: the host
-            # closed-form path at the top of encode() is exact.  The
-            # device constant kernels — fl_encode_dense_constant_pallas
-            # — remain the device-resident API for on-chip pipelines
-            # and the bench chains.)
-            if fbp is not None:
-                b2u, du, flag = \
-                    fl_dense_pallas.fl_encode_dense_uniform_pallas(
-                        wordsj, nfj, fbp, tile_r=Ru,
-                        nref=fl_dense_pallas.uniform_nref(fbp, Ru))
-                if int(jax.device_get(flag)) == 0:
-                    bits2d, dense = b2u, du.reshape(-1)
-            if dense is None:
-                # general kernel with a SPECULATIVE stream plan (width
-                # floor + routing round bound from the first tile,
-                # chip A/B exp51: +12% pair on the reference BMP); the
-                # kernel's flag is authoritative — a miss re-runs the
-                # default (same contract as the uniform speculation)
-                wq, nq = fl_dense_pallas.host_probe_route_plan(buf)
-                if wq > 1 or nq is not None:
-                    b2s, ds, _, _, pflag = \
-                        fl_dense_pallas.fl_encode_dense_pallas(
-                            wordsj, nfj, wmin=wq, route_nbits=nq)
-                    if int(jax.device_get(pflag)) == 0:
-                        bits2d, dense = b2s, ds.reshape(-1)
-            if dense is None:
-                bits2d, dense, _, _ = \
-                    fl_dense_pallas.fl_encode_dense_pallas(wordsj, nfj)
-            krn += [bits2d, dense]
+    if dense_route(frame_length):
+        bits_d, dense_d, _ = out
         with stage("Copy results to CPU") as t:
-            bits = np.asarray(jax.device_get(bits2d)).reshape(-1)[:frames]
-            counts = np.minimum(
-                n - np.arange(frames, dtype=np.int64) * frame_length,
-                frame_length)
-            vsz = int(((bits.astype(np.int64) * counts + 7) // 8).sum())
-            values = np.asarray(
-                jax.device_get(dense[: -(-vsz // 4)])).view(np.uint8)[:vsz]
+            bits = np.asarray(jax.device_get(bits_d))[:frames]
+            vsz = values_size(bits, n, frame_length)
+            kw = transfer_words(-(-vsz // 4), dense_d.shape[0])
+            values = np.asarray(jax.device_get(dense_d[:kw])).view(
+                np.uint8)[:vsz]
             if t:
                 t.add_transfer_size(frames + vsz)
         return bits, values
+    from .fields import fold
+    bits_d, fields_d = out
     wpf = frame_length // 4
-    if _use_pack2(frame_length, npad // 4):
-        from . import fl_pallas
-        from .fields import fold_p2
-        krn = []
-        with stage("Compression", n, result=krn):
-            b2d, packed_d = fl_pallas.fl_encode_fields_packed_pallas(
-                jnp.asarray(buf.view(np.uint32)), jnp.int32(n),
-                frame_length)
-            krn += [b2d, packed_d]
-        bits = np.asarray(jax.device_get(b2d)).reshape(-1)[:frames]
-        if int(bits.max()) <= 4:
-            tile_w = fl_pallas.PACK_TILE_R * 128
-            need = -(-(frames * wpf) // tile_w) * (tile_w // 2)
-            with stage("Copy results to CPU", frames + need * 4):
-                packed_h = np.asarray(jax.device_get(packed_d[:need]))
-            with stage("Host fold (ragged placement)", n):
-                return bits, fold_p2(packed_h, bits, n, frame_length,
-                                     fl_pallas.PACK_TILE_R)
-        # speculation miss (some width > 4): fall through to the base
-        # kernel — one extra device pass
-    krn = []
-    with stage("Compression", n, result=krn):
-        bits_d, fields_d = encode_fields_device(
-            jnp.asarray(buf.view(np.uint32)), jnp.int32(n), frame_length)
-        krn += [bits_d, fields_d]
-    # Pallas returns bits 2-D (rows, 128/wpf); XLA returns (F,) — both
-    # flatten to frame order on host.
     with stage("Copy results to CPU", frames + frames * wpf * 4):
-        bits = np.asarray(jax.device_get(bits_d)).reshape(-1)[:frames]
+        bits = np.asarray(jax.device_get(bits_d))[:frames]
         fields_h = np.asarray(jax.device_get(fields_d))[: frames * wpf]
     with stage("Host fold (ragged placement)", n):
         return bits, fold(fields_h, bits, n, frame_length)
 
 
-def decode(output_size: int, bits: np.ndarray, values: np.ndarray,
-           frame_length: int = FRAME_LENGTH,
-           bucket_frames: int = 8192) -> np.ndarray:
-    """NumPy in → decoded u8[output_size] (host unfold + device kernel)."""
-    from .fields import unfold
-
-    if frame_length % 8:
-        raise ValueError(
-            f"frame_length must be a multiple of 8, got {frame_length}")
-    bits = np.asarray(bits, np.uint8)
-    values = np.asarray(values, np.uint8)
-    n = int(output_size)
-    if n == 0:
-        return np.zeros(0, np.uint8)
-    # (an EMPTY widths array with n > 0 is a corrupt container and falls
-    # through to the frame-count check below — it used to silently
-    # return empty output)
-    # Validate the widths header against the claimed size BEFORE any
-    # size-n work: a corrupt container claiming a huge inputSize must be
-    # rejected in O(1), not after gigabytes of scratch allocation (the
-    # reference segfaults here — fl_cpu.cu:115-141 trusts the header).
-    frames = -(-n // frame_length)
-    if bits.size < frames:
-        raise ValueError(
-            "fl decode: corrupt container (bits array shorter than "
-            f"frame count: {bits.size} < {frames})")
-    # Host constant-container fast path (round 4b): uniform widths +
-    # the exact closed-form payload ⇒ the output is one memset.
-    c = host_constant_decode_probe(bits, values, n, frame_length)
-    if c is not None:
-        from ..utils.timers import stage
-        with stage("Decompression", n):      # --timers parity
-            return np.full(n, c, np.uint8)
-    out8 = host_identity_decode_probe(bits, values, n, frame_length)
-    if out8 is not None:
-        from ..utils.timers import stage
-        with stage("Decompression", n):
-            return out8
-    cap = _device_cap(frame_length)
-    if n > cap:
-        # per-chunk value offsets from the widths header (the same
-        # scan the reference decoder runs, fl_gpu.cu:596-601), then a
-        # software-pipelined walk (chunk k+1's H2D + kernel overlap
-        # chunk k's D2H — round 5)
-        counts = np.minimum(
-            n - np.arange(frames, dtype=np.int64) * frame_length,
-            frame_length)
-        fbytes = (bits[:frames].astype(np.int64) * counts + 7) // 8
-        voffs = np.concatenate([[0], np.cumsum(fbytes)])
-        fpc = cap // frame_length
-
-        def parts_iter():
-            for off in range(0, n, cap):
-                f0 = off // frame_length
-                f1 = min(f0 + fpc, frames)
-                yield (min(cap, n - off), bits[f0:f1],
-                       values[voffs[f0]:voffs[f1]])
-
-        return np.concatenate(
-            list(decode_chunks(parts_iter(), frame_length,
-                               bucket_frames)))
-    npad = pad_to_frames(n, frame_length, bucket_frames)
-    # Per-stage [TIMER] instrumentation (no-op unless the CLI enabled it):
-    # stage names mirror the reference's gpuDecompress timer lines
-    # (/root/reference/src/fl/fl_gpu.cu:573-637).
-    from ..utils.timers import stage
-    if _use_dense_dec(frame_length, npad // 4):
-        from . import fl_dense_pallas
-        R = fl_dense_pallas.DENSE_DEC_TILE_R
-        frames = -(-n // frame_length)
-        if bits.size < frames:
-            raise ValueError(
-                "fl decode: corrupt container (bits array shorter than "
-                f"frame count: {bits.size} < {frames})")
-        rows = npad // 512                      # output u32 rows
-        grid = rows // R
-        fb = np.zeros(rows * 4, np.int64)
-        fb[:frames] = bits[:frames]
-        wper = fb.reshape(grid, -1).sum(axis=1) * 4
-        woffs = np.concatenate([[0], np.cumsum(wper)[:-1]]).astype(np.int32)
-        # exact host dispatch: a uniform widths header takes the
-        # single-width block-walk decoder (no window DMA, no offsets)
-        ba = bits[:frames]
-        fbu = (int(ba[0]) if ba.size and (ba == ba[0]).all() else 0)
-        Ru = (fl_dense_pallas.uniform_tile_r(fbu, rows) if fbu else 0)
-        if (fbu and rows % Ru == 0
-                and fl_dense_pallas.uniform_kernel_available(
-                    fbu, Ru, inverse=True)):
-            Kr = fbu * Ru // 8
-            need = (rows // Ru) * Kr
-            dbuf = np.zeros(need * 512, np.uint8)
-            dbuf[: values.size] = values
-            h2d = []
-            with stage("Copy input to TPU", values.size, result=h2d):
-                dwords = jnp.asarray(
-                    dbuf.view(np.uint32).reshape(need, 128))
-                h2d.append(dwords)
-            krn = []
-            with stage("Decompression", n, result=krn):
-                # (constant containers never reach here — the host
-                # closed-form check at the top of decode() is exact)
-                out = fl_dense_pallas.fl_decode_dense_uniform_pallas(
-                    dwords, fbu, rows, tile_r=Ru,
-                    nref=fl_dense_pallas.uniform_nref(fbu, Ru))
-                krn.append(out)
-            with stage("Copy results to CPU", n):
-                return np.ascontiguousarray(
-                    np.asarray(jax.device_get(out)).reshape(-1)).view(
-                        np.uint8)[:n].copy()
-        vwords = -(-values.size // 4)
-        pad_rows = vwords // 128 + R + 32
-        dbuf = np.zeros(pad_rows * 512, np.uint8)
-        dbuf[: values.size] = values
-        b2 = np.zeros((rows, 4), np.uint8)
-        b2.reshape(-1)[:frames] = bits[:frames]
-        h2d = []
-        with stage("Copy input to TPU", values.size + frames, result=h2d):
-            dwords = jnp.asarray(dbuf.view(np.uint32).reshape(pad_rows, 128))
-            b2d = jnp.asarray(b2)
-            h2d += [dwords, b2d]
-        # EXACT stream plan from the widths header (free at decode
-        # time): width floor + routing round bound, quantized to the
-        # compile-variant grid (chip A/B exp51: +12% pair on the BMP)
-        wmin, _, dnb = fl_dense_pallas.host_route_plan(bits, frames)
-        full_dec = (7 * (R * 16 - 1) + 1024).bit_length()
-        wq, nq = fl_dense_pallas.quantize_plan(wmin, dnb, full_dec)
-        krn = []
-        with stage("Decompression", n, result=krn):
-            out = fl_dense_pallas.fl_decode_dense_pallas(
-                dwords, b2d, jnp.asarray(woffs), jnp.int32(frames),
-                wmin=wq, route_nbits=nq)
-            krn.append(out)
-        with stage("Copy results to CPU", n):
-            return np.ascontiguousarray(
-                np.asarray(jax.device_get(out)).reshape(-1)).view(
-                    np.uint8)[:n].copy()
-    fpad = npad // frame_length
-    wpf = frame_length // 4
-    if (_use_pack2(frame_length, npad // 4)
-            and int(bits[:frames].max()) <= 4):
-        from . import fl_pallas
-        from .fields import unfold_p2
-        with stage("Host unfold (ragged placement)", n):
-            packed_h = unfold_p2(values, bits[:frames], n, frame_length,
-                                 fl_pallas.PACK_TILE_R, npad // 8)
-        b2 = np.zeros(fpad, np.uint8)
-        b2[:frames] = bits[:frames]
-        krn = []
-        with stage("Decompression", n, result=krn):
-            out = fl_pallas.fl_decode_fields_packed_pallas(
-                jnp.asarray(packed_h),
-                jnp.asarray(b2.reshape(npad // 512, 128 // wpf)),
-                jnp.int32(n), frame_length)
-            krn.append(out)
-        with stage("Copy results to CPU", n):
-            return np.asarray(jax.device_get(out)).view(np.uint8)[:n]
-    with stage("Host unfold (ragged placement)", n):
-        fields_h = unfold(values, bits, n, frame_length)
-    fbuf = np.zeros(fpad * wpf, np.uint32)
-    fbuf[: fields_h.size] = fields_h
-    bbuf = np.zeros(fpad, np.uint8)
-    bbuf[: bits.size] = bits
-    bprep = prep_decode_bits(bbuf, npad // 4, frame_length)
-    krn = []
-    with stage("Decompression", n, result=krn):
-        out = decode_fields_device(jnp.asarray(fbuf), jnp.asarray(bprep),
-                                   jnp.int32(n), frame_length)
-        krn.append(out)
-    with stage("Copy results to CPU", n):
-        return np.asarray(jax.device_get(out)).view(np.uint8)[:n]
-
-
-# ---------------------------------------------------------------------------
-# Software-pipelined chunked codec (round 5).
-#
-# JAX dispatch is asynchronous: ``device_put`` and kernel calls return
-# immediately and only ``device_get`` blocks.  These generators exploit
-# that to overlap chunk k+1's H2D + kernel with chunk k's D2H + host
-# fold — a two-deep pipeline whose wall time approaches max(phase) per
-# chunk instead of the reference's fully serialized Σ(phases)
-# (``fl_gpu.cu:341,348,367`` synchronizes after every stage).  Frame-
-# aligned chunks make the outputs byte-identical to the whole-buffer
-# codec (SURVEY.md finding #3).
-# ---------------------------------------------------------------------------
-
 def encode_chunks(chunks, frame_length: int = FRAME_LENGTH,
-                  bucket_frames: int = 8192, depth: int = 2):
+                  bucket_frames: int = BUCKET_FRAMES, depth: int = 2):
     """Pipelined encode over an iterable of NumPy byte chunks (all but
     the last must be frame-aligned).  Yields ``(bits, values)`` pairs
     in order — one per chunk, except that chunks above the 1 GiB
     device cap are split internally (frame-aligned) and yield one pair
-    per sub-chunk.  Speculative dispatch (uniform / stream plan) is
-    submitted asynchronously; the authoritative flags are checked at
-    drain time, one chunk later, so a miss re-runs the default program
-    without stalling the pipeline on the hit path.
-
-    Memory note: speculative entries retain their device input words
-    until drain (the miss re-run needs them), so peak device memory is
-    ~2× a chunk's working set at depth 2 — size chunks accordingly on
-    small-HBM parts.
-
-    MAINTENANCE: this dispatch mirrors :func:`encode` (see the note
-    there) — change both together."""
-    if frame_length % 8:
-        raise ValueError(
-            f"frame_length must be a multiple of 8, got {frame_length}")
-    from collections import deque
-
-    from ..utils.timers import stage
-    from .fields import fold
+    per sub-chunk."""
+    _check_frame_length(frame_length)
     cap = _device_cap(frame_length)
 
-    def submit(data):
-        data = np.asarray(data, np.uint8)
-        n = data.size
-        if n == 0:
-            return ("ready",
-                    (np.zeros(0, np.uint8), np.zeros(0, np.uint8)))
-        c = _host_constant_byte(data)
-        if c is not None:
-            return ("ready", _constant_container(c, n, frame_length))
-        npad = pad_to_frames(n, frame_length, bucket_frames)
-        buf = np.zeros(npad, np.uint8)
-        buf[:n] = data
-        frames = -(-n // frame_length)
-        if _use_dense(frame_length, npad // 4):
-            from . import fl_dense_pallas
-            wordsj = jnp.asarray(buf.view(np.uint32))     # async H2D
-            nfj = jnp.int32(frames)
-            Ru = fl_dense_pallas.DENSE_UNIFORM_TILE_R
-            fbp = (fl_dense_pallas.host_probe_uniform_b(buf, Ru)
-                   if npad % (Ru * 512) == 0 else None)
-            if fbp is not None:
-                # tile upgrade must re-prove mask availability (the
-                # probe checked the BASE tile only)
-                Ru2 = fl_dense_pallas.uniform_tile_r(fbp, npad // 512)
-                if (Ru2 != Ru and fl_dense_pallas
-                        .uniform_kernel_available(fbp, Ru2)):
-                    Ru = Ru2
-                b2, dn, flag = \
-                    fl_dense_pallas.fl_encode_dense_uniform_pallas(
-                        wordsj, nfj, fbp, tile_r=Ru,
-                        nref=fl_dense_pallas.uniform_nref(fbp, Ru))
-                # probe the stream plan NOW (host buf is in scope) so a
-                # drain-time miss can try the planned program before
-                # the default — the serial path's fallback order
-                plan = fl_dense_pallas.host_probe_route_plan(buf)
-                return ("dense", n, frames, b2, dn.reshape(-1), flag,
-                        wordsj, nfj, plan)
-            wq, nq = fl_dense_pallas.host_probe_route_plan(buf)
-            if wq > 1 or nq is not None:
-                b2, dn, _, _, flag = \
-                    fl_dense_pallas.fl_encode_dense_pallas(
-                        wordsj, nfj, wmin=wq, route_nbits=nq)
-                return ("dense", n, frames, b2, dn.reshape(-1), flag,
-                        wordsj, nfj, (1, None))
-            b2, dn, _, _ = fl_dense_pallas.fl_encode_dense_pallas(
-                wordsj, nfj)
-            return ("dense", n, frames, b2, dn.reshape(-1), None,
-                    None, None, (1, None))
-        wordsj = jnp.asarray(buf.view(np.uint32))          # async H2D
-        if _use_pack2(frame_length, npad // 4):
-            # pack-2 speculation (exp29, mirrors encode()): valid when
-            # every width ≤ 4 — known only at drain, where a miss
-            # re-runs the base kernel on the retained words
-            from . import fl_pallas
-            b2d, packed_d = fl_pallas.fl_encode_fields_packed_pallas(
-                wordsj, jnp.int32(n), frame_length)
-            return ("p2", n, frames, b2d, packed_d, wordsj)
-        # base fields path (Pallas or XLA kernels): async dispatch, the
-        # host fold runs at drain — overlapping the next chunk's device
-        # work
-        bits_d, fields_d = encode_fields_device(
-            wordsj, jnp.int32(n), frame_length)
-        return ("fields", n, frames, bits_d, fields_d)
-
-    def drain(entry):
-        if entry[0] == "ready":
-            return entry[1]
-        wpf = frame_length // 4
-        if entry[0] == "dense":
-            from . import fl_dense_pallas
-            _, n, frames, b2, dn, flag, wordsj, nfj, plan = entry
-            if flag is not None and int(jax.device_get(flag)) != 0:
-                # speculation miss (rare): try the planned general
-                # program first (the serial fallback order), then the
-                # default, on the retained device words
-                wq, nq = plan
-                done = False
-                if wq > 1 or nq is not None:
-                    b2s, ds, _, _, pflag = \
-                        fl_dense_pallas.fl_encode_dense_pallas(
-                            wordsj, nfj, wmin=wq, route_nbits=nq)
-                    if int(jax.device_get(pflag)) == 0:
-                        b2, dn = b2s, ds.reshape(-1)
-                        done = True
-                if not done:
-                    b2, dn2, _, _ = \
-                        fl_dense_pallas.fl_encode_dense_pallas(
-                            wordsj, nfj)
-                    dn = dn2.reshape(-1)
-            with stage("Copy results to CPU"):
-                bits = np.asarray(
-                    jax.device_get(b2)).reshape(-1)[:frames]
-                counts = np.minimum(
-                    n - np.arange(frames, dtype=np.int64)
-                    * frame_length, frame_length)
-                vsz = int(((bits.astype(np.int64) * counts + 7)
-                           // 8).sum())
-                values = np.asarray(jax.device_get(
-                    dn[: -(-vsz // 4)])).view(np.uint8)[:vsz]
-            return bits, values
-        if entry[0] == "p2":
-            from . import fl_pallas
-            from .fields import fold_p2
-            _, n, frames, b2d, packed_d, wordsj = entry
-            bits = np.asarray(jax.device_get(b2d)).reshape(-1)[:frames]
-            if int(bits.max()) <= 4:
-                tile_w = fl_pallas.PACK_TILE_R * 128
-                need = -(-(frames * wpf) // tile_w) * (tile_w // 2)
-                with stage("Copy results to CPU", frames + need * 4):
-                    packed_h = np.asarray(
-                        jax.device_get(packed_d[:need]))
-                with stage("Host fold (ragged placement)", n):
-                    return bits, fold_p2(packed_h, bits, n,
-                                         frame_length,
-                                         fl_pallas.PACK_TILE_R)
-            # speculation miss: base kernel on the retained words
-            bits_d, fields_d = encode_fields_device(
-                wordsj, jnp.int32(n), frame_length)
-            entry = ("fields", n, frames, bits_d, fields_d)
-        _, n, frames, bits_d, fields_d = entry
-        bits = np.asarray(jax.device_get(bits_d)).reshape(-1)[:frames]
-        with stage("Copy results to CPU", frames + frames * wpf * 4):
-            fields_h = np.asarray(
-                jax.device_get(fields_d))[: frames * wpf]
-        with stage("Host fold (ragged placement)", n):
-            return bits, fold(fields_h, bits, n, frame_length)
-
     def capped(it):
-        # chunks above the device cap split frame-aligned (the cap is
-        # the int32 index-math bound the kernels assume — the serial
-        # encode() splits identically)
         for d in it:
             d = np.asarray(d, np.uint8)
             if d.size <= cap:
@@ -846,143 +508,115 @@ def encode_chunks(chunks, frame_length: int = FRAME_LENGTH,
                     yield d[off:off + cap]
 
     pending = deque()
-    tail_seen = [False]
+    tail_seen = False
     for data in capped(chunks):
         # frame alignment is the correctness invariant (SURVEY finding
         # #3): a misaligned NON-final chunk would silently produce a
         # different container than the whole-buffer encode — reject it
-        if tail_seen[0]:
+        if tail_seen:
             raise ValueError(
                 "encode_chunks: a non-frame-aligned chunk must be the "
                 "last one")
-        if data.size % frame_length:
-            tail_seen[0] = True
-        pending.append(submit(data))
+        tail_seen = bool(data.size % frame_length)
+        pending.append(_encode_submit(data, frame_length, bucket_frames))
         if len(pending) >= depth:
-            yield drain(pending.popleft())
+            yield _encode_drain(pending.popleft(), frame_length)
     while pending:
-        yield drain(pending.popleft())
+        yield _encode_drain(pending.popleft(), frame_length)
+
+
+def _decode_submit(n: int, bits: np.ndarray, values: np.ndarray,
+                   frame_length: int, bucket_frames: int):
+    if n == 0:
+        return ("ready", np.zeros(0, np.uint8))
+    frames = -(-n // frame_length)
+    if bits.size < frames:
+        # incl. an EMPTY widths array with n > 0 — silently returning
+        # empty output would truncate the stream.  Checked before any
+        # size-n work: a corrupt header claiming a huge size is rejected
+        # in O(1) (the reference trusts it, fl_cpu.cu:115-141).
+        raise ValueError(
+            "fl decode: corrupt container (bits array shorter than "
+            f"frame count: {bits.size} < {frames})")
+    c = host_constant_decode_probe(bits, values, n, frame_length)
+    if c is not None:
+        with stage("Decompression", n):
+            return ("ready", np.full(n, c, np.uint8))
+    out8 = host_identity_decode_probe(bits, values, n, frame_length)
+    if out8 is not None:
+        with stage("Decompression", n):
+            return ("ready", out8)
+    npad = pad_to_frames(n, frame_length, bucket_frames)
+    bbuf = np.zeros(npad // frame_length, np.uint8)
+    bbuf[:frames] = bits[:frames]
+    h2d, krn = [], []
+    if dense_route(frame_length):
+        vsz = values_size(bits, n, frame_length)
+        if values.size < vsz:
+            raise ValueError(
+                "fl decode: corrupt container (packed stream shorter than "
+                f"the widths imply: {values.size} < {vsz})")
+        kw = transfer_words(-(-vsz // 4), npad // 4)
+        vbuf = np.zeros(kw * 4, np.uint8)
+        vbuf[:vsz] = values[:vsz]
+        with stage("Copy input to device", vsz + frames, result=h2d):
+            dj, bj = jnp.asarray(vbuf.view(np.uint32)), jnp.asarray(bbuf)
+            h2d += [dj, bj]
+        with stage("Decompression", n, result=krn):
+            out = fl_decode_dense(dj, bj, jnp.int32(n),
+                                  frame_length=frame_length)
+            krn.append(out)
+        return ("dev", n, out)
+    from .fields import unfold
+    with stage("Host unfold (ragged placement)", n):
+        fields_h = unfold(values, bits, n, frame_length)
+    fbuf = np.zeros(npad // 4, np.uint32)
+    fbuf[: fields_h.size] = fields_h
+    with stage("Copy input to device", npad + frames, result=h2d):
+        fj, bj = jnp.asarray(fbuf), jnp.asarray(bbuf)
+        h2d += [fj, bj]
+    with stage("Decompression", n, result=krn):
+        out = fl_decode_fields(fj, bj, jnp.int32(n),
+                               frame_length=frame_length)
+        krn.append(out)
+    return ("dev", n, out)
+
+
+def _decode_drain(entry):
+    if entry[0] == "ready":
+        return entry[1]
+    _, n, out = entry
+    with stage("Copy results to CPU", n):
+        return np.asarray(jax.device_get(out)).view(np.uint8)[:n]
 
 
 def decode_chunks(parts, frame_length: int = FRAME_LENGTH,
-                  bucket_frames: int = 8192, depth: int = 2):
+                  bucket_frames: int = BUCKET_FRAMES, depth: int = 2):
     """Pipelined decode over an iterable of ``(output_size, bits,
     values)`` frame-aligned container chunks.  Yields decoded u8 arrays
     in order — one per chunk, except that chunks above the 1 GiB device
-    cap are split internally (one output per sub-chunk).  Per-chunk
-    dispatch is exact (widths header known), so there are no drain-time
-    re-runs."""
-    if frame_length % 8:
-        raise ValueError(
-            f"frame_length must be a multiple of 8, got {frame_length}")
-    from collections import deque
-
-    from .fields import unfold
+    cap are split internally (one output per sub-chunk)."""
+    _check_frame_length(frame_length)
     cap = _device_cap(frame_length)
 
-    def submit(n, bits, values):
-        bits = np.asarray(bits, np.uint8)
-        values = np.asarray(values, np.uint8)
-        n = int(n)
-        if n == 0:
-            return ("ready", np.zeros(0, np.uint8))
-        frames = -(-n // frame_length)
-        if bits.size < frames:
-            # incl. an EMPTY widths array with n > 0 — silently
-            # returning empty output would truncate the stream
-            raise ValueError(
-                "fl decode: corrupt container (bits array shorter than "
-                f"frame count: {bits.size} < {frames})")
-        c = host_constant_decode_probe(bits, values, n, frame_length)
-        if c is not None:
-            return ("ready", np.full(n, c, np.uint8))
-        out8 = host_identity_decode_probe(bits, values, n, frame_length)
-        if out8 is not None:
-            return ("ready", out8)
-        npad = pad_to_frames(n, frame_length, bucket_frames)
-        if _use_dense_dec(frame_length, npad // 4):
-            from . import fl_dense_pallas
-            R = fl_dense_pallas.DENSE_DEC_TILE_R
-            rows = npad // 512
-            ba = bits[:frames]
-            fbu = (int(ba[0]) if ba.size and (ba == ba[0]).all() else 0)
-            Ru = (fl_dense_pallas.uniform_tile_r(fbu, rows) if fbu
-                  else 0)
-            if (fbu and rows % Ru == 0
-                    and fl_dense_pallas.uniform_kernel_available(
-                        fbu, Ru, inverse=True)):
-                Kr = fbu * Ru // 8
-                need = (rows // Ru) * Kr
-                dbuf = np.zeros(need * 512, np.uint8)
-                dbuf[: values.size] = values
-                out = fl_dense_pallas.fl_decode_dense_uniform_pallas(
-                    jnp.asarray(dbuf.view(np.uint32).reshape(need, 128)),
-                    fbu, rows, tile_r=Ru,
-                    nref=fl_dense_pallas.uniform_nref(fbu, Ru))
-                return ("dev", n, out)
-            grid = rows // R
-            fb = np.zeros(rows * 4, np.int64)
-            fb[:frames] = bits[:frames]
-            wper = fb.reshape(grid, -1).sum(axis=1) * 4
-            woffs = np.concatenate(
-                [[0], np.cumsum(wper)[:-1]]).astype(np.int32)
-            vwords = -(-values.size // 4)
-            pad_rows = vwords // 128 + R + 32
-            dbuf = np.zeros(pad_rows * 512, np.uint8)
-            dbuf[: values.size] = values
-            b2 = np.zeros((rows, 4), np.uint8)
-            b2.reshape(-1)[:frames] = bits[:frames]
-            wmin, _, dnb = fl_dense_pallas.host_route_plan(bits, frames)
-            full_dec = (7 * (R * 16 - 1) + 1024).bit_length()
-            wq, nq = fl_dense_pallas.quantize_plan(wmin, dnb, full_dec)
-            out = fl_dense_pallas.fl_decode_dense_pallas(
-                jnp.asarray(dbuf.view(np.uint32).reshape(pad_rows, 128)),
-                jnp.asarray(b2), jnp.asarray(woffs), jnp.int32(frames),
-                wmin=wq, route_nbits=nq)
-            return ("dev", n, out)
-        # fields path: host unfold at submit (overlaps the previous
-        # chunk's device work), async device decode
-        fpad = npad // frame_length
-        wpf = frame_length // 4
-        fields_h = unfold(values, bits, n, frame_length)
-        fbuf = np.zeros(fpad * wpf, np.uint32)
-        fbuf[: fields_h.size] = fields_h
-        bbuf = np.zeros(fpad, np.uint8)
-        bbuf[: bits.size] = bits
-        bprep = prep_decode_bits(bbuf, npad // 4, frame_length)
-        out = decode_fields_device(jnp.asarray(fbuf), jnp.asarray(bprep),
-                                   jnp.int32(n), frame_length)
-        return ("dev", n, out)
-
-    def drain(entry):
-        if entry[0] == "ready":
-            return entry[1]
-        _, n, out = entry
-        return np.ascontiguousarray(
-            np.asarray(jax.device_get(out)).reshape(-1)).view(
-                np.uint8)[:n].copy()
-
     def capped(it):
-        # parts above the device cap split frame-aligned via the widths
-        # header (same math as the serial decode's superchunk walk)
+        # parts above the device cap split frame-aligned, with per-chunk
+        # value offsets from the widths header
         fpc = cap // frame_length
         for n, bits, values in it:
             n = int(n)
+            bits = np.asarray(bits, np.uint8)
+            values = np.asarray(values, np.uint8)
             if n <= cap:
                 yield (n, bits, values)
                 continue
-            bits = np.asarray(bits, np.uint8)
-            values = np.asarray(values, np.uint8)
             frames = -(-n // frame_length)
             if bits.size < frames:
                 raise ValueError(
                     "fl decode: corrupt container (bits array shorter "
                     f"than frame count: {bits.size} < {frames})")
-            counts = np.minimum(
-                n - np.arange(frames, dtype=np.int64) * frame_length,
-                frame_length)
-            fbytes = (bits[:frames].astype(np.int64) * counts + 7) // 8
-            voffs = np.concatenate([[0], np.cumsum(fbytes)])
+            voffs = np.concatenate(
+                [[0], np.cumsum(frame_value_bytes(bits, n, frame_length))])
             for off in range(0, n, cap):
                 f0 = off // frame_length
                 f1 = min(f0 + fpc, frames)
@@ -991,8 +625,8 @@ def decode_chunks(parts, frame_length: int = FRAME_LENGTH,
 
     pending = deque()
     for part in capped(parts):
-        pending.append(submit(*part))
+        pending.append(_decode_submit(*part, frame_length, bucket_frames))
         if len(pending) >= depth:
-            yield drain(pending.popleft())
+            yield _decode_drain(pending.popleft())
     while pending:
-        yield drain(pending.popleft())
+        yield _decode_drain(pending.popleft())

@@ -1,4 +1,4 @@
-"""TPU-native RL (run-length) codec in JAX.
+"""RL (run-length) codec on the device, in plain JAX.
 
 Semantics come from the golden NumPy implementation (`rl_numpy.py`) and the
 reference's written spec (``/root/reference/IMPLEMENTATION-PLAN.md:81-179`` —
@@ -18,7 +18,8 @@ all static-shape and branch-free:
   (``IMPLEMENTATION-PLAN.md:154-179``) with a single scan + gather.
 
 Shapes are static (worst case: every byte its own run); the true input
-length ``n`` and run count are traced scalars, sliced on host.
+length ``n`` and run count are traced scalars, sliced on host.  Index math
+is int32, so one call handles inputs below 2 GiB.
 """
 
 from __future__ import annotations
@@ -102,59 +103,6 @@ def rl_decode(counts: jax.Array, values: jax.Array, num_runs: jax.Array,
 
 
 # ---------------------------------------------------------------------------
-# Backend selection: Pallas routing kernels on TPU (the XLA formulation
-# above keeps `.at[].set` scatters that lower to the scalar core — the
-# correct-but-dead fallback and CPU/test path).
-# ---------------------------------------------------------------------------
-
-def _use_pallas(npad_bytes: int) -> bool:
-    from . import rl_pallas
-    return (jax.default_backend() == "tpu"
-            and npad_bytes % (rl_pallas.TILE_ROWS * 128) == 0)
-
-
-def _use_pallas_dec(out_pad: int) -> bool:
-    from . import rl_pallas
-    return (jax.default_backend() == "tpu"
-            and out_pad % (rl_pallas.DEC_TILE_ROWS * 128) == 0)
-
-
-def rl_encode_device(data: jax.Array, n: jax.Array) -> RLEncoded:
-    """Backend-selected RL encode (Pallas on TPU when shapes allow).
-    ``data``: u8[N_pad] with zeros beyond ``n``.  The returned counts/
-    values arrays may be slightly longer than N_pad (kernel staging
-    slack); entries beyond ``num_runs`` are junk either way."""
-    npad = data.shape[0]
-    if _use_pallas(npad):
-        from . import rl_pallas
-        R = rl_pallas.encode_tile_rows(npad // 128)
-        packed, total = rl_pallas.rl_encode_pallas(
-            data.reshape(-1, 128), n, tile_rows=R, sub_rows=R)
-        counts, values = rl_pallas.rl_split_packed(packed, total, n)
-        return RLEncoded(counts=counts, values=values, num_runs=total)
-    return rl_encode(data, n)
-
-
-def rl_decode_device(counts: jax.Array, values: jax.Array,
-                     num_runs: jax.Array, n: jax.Array,
-                     out_pad: int, win_rows: int | None = None
-                     ) -> jax.Array:
-    """Backend-selected RL decode.  Output u8[out_pad]; bytes beyond ``n``
-    are unspecified (callers slice ``[:n]``).  ``win_rows``: static
-    run-window hint from `rl_pallas.decode_window_rows` (host counts
-    needed to compute it; None = safe worst case)."""
-    if _use_pallas_dec(out_pad) and counts.shape[0] % 128 == 0:
-        from . import rl_pallas
-        R = rl_pallas.decode_tile_rows(out_pad // 128)
-        out2d = rl_pallas.rl_decode_pallas(counts, values, num_runs,
-                                           out_pad // 128, tile_rows=R,
-                                           sub_rows=R,
-                                           win_rows=win_rows)
-        return out2d.reshape(-1)
-    return rl_decode(counts, values, num_runs, n, out_pad)
-
-
-# ---------------------------------------------------------------------------
 # Host-facing convenience wrappers.
 # ---------------------------------------------------------------------------
 
@@ -201,12 +149,12 @@ def encode(data: np.ndarray, bucket: int = 1 << 20):
     # (/root/reference/src/fl/fl_gpu.cu:317-415; RL is spec-only there).
     from ..utils.timers import stage
     h2d = []
-    with stage("Copy input data to TPU", npad, result=h2d):
+    with stage("Copy input data to device", npad, result=h2d):
         dataj = jnp.asarray(buf)
         h2d.append(dataj)
     krn = []
     with stage("Compression", n, result=krn):
-        enc = rl_encode_device(dataj, jnp.int32(n))
+        enc = rl_encode(dataj, jnp.int32(n))
         krn += [enc.counts, enc.num_runs]
     r = int(enc.num_runs)
     with stage("Copy results to CPU", 2 * r):
@@ -238,19 +186,14 @@ def decode(counts: np.ndarray, values: np.ndarray,
     vbuf = np.zeros(rpad, np.uint8)
     vbuf[:r] = values
     out_pad = _pad(n, bucket)
-    # No window hint: at the default 128-row tile the worst-case window
-    # measured FASTER than hinted small windows (10.9 vs 7.5 GB/s,
-    # exp14) — window reads are bandwidth-trivial; per-tile compute
-    # dominates.  Hints pay off only for large multi-sub tiles.
     from ..utils.timers import stage
     h2d = []
-    with stage("Copy input to TPU", 2 * rpad, result=h2d):
+    with stage("Copy input to device", 2 * rpad, result=h2d):
         cj, vj = jnp.asarray(cbuf), jnp.asarray(vbuf)
         h2d += [cj, vj]
     krn = []
     with stage("Decompression", n, result=krn):
-        outd = rl_decode_device(cj, vj, jnp.int32(r), jnp.int32(n),
-                                out_pad)
+        outd = rl_decode(cj, vj, jnp.int32(r), jnp.int32(n), out_pad)
         krn.append(outd)
     with stage("Copy results to CPU", n):
         out = jax.device_get(outd)

@@ -65,7 +65,7 @@ def encode(data: np.ndarray):
     flags = np.ones(n, bool)
     flags[1:] = data[1:] != data[:-1]
     # Start index of each element's (uncapped) run: running max of flagged
-    # positions — the TPU-native replacement for the spec's rescan loop.
+    # positions — a single-pass replacement for the spec's rescan loop.
     start = np.maximum.accumulate(np.where(flags, idx, 0))
     flags |= ((idx - start) % RUN_CAP == 0) & (idx != start)
     starts = np.nonzero(flags)[0]

@@ -1,27 +1,28 @@
-"""Multi-chip distributed compression over a 1-D device mesh.
+"""Multi-device distributed compression over a 1-D device mesh.
 
 The reference distributes with one MPI rank + one GPU per file chunk and
 gathers to rank 0 (MPI point-to-point, ``/root/reference/src/fl/fl_gpu.cu:
 41-74``) or with a max-padded ``ncclAllGather`` + offset compaction
-(``fl_gpu.cu:76-287``).  TPU-native, both collapse into one SPMD program:
+(``fl_gpu.cu:76-287``).  Here both are one SPMD program:
 
-* a 1-D ``jax.sharding.Mesh`` over all chips, axis ``"dp"`` — data
+* a 1-D ``jax.sharding.Mesh`` over the devices, axis ``"dp"`` — data
   parallelism is the reference's only strategy (SURVEY.md §2) and the right
-  one for an embarrassingly parallel codec;
+  one for an embarrassingly parallel codec; every card of a host reaches
+  every other at the same rate, so the mesh follows the algorithm alone;
 * the file is split into frame-aligned chunks with the reference's rule
   ``chunk = (S // (L·N)) · L``, last shard takes the remainder
   (``file_io.cu:46-51`` — reproduced in 64-bit math, not the reference's
   overflowing ``int``);
-* ``jax.shard_map`` runs the single-chip *field kernels* per shard (see
-  `ops/fl_jax.py` for why fields: all bit manipulation on device,
-  elementwise at memory bandwidth; ragged placement on host);
-* the merge is either **host-side** (pull each shard's fields + widths and
-  fold in rank order — the MPI-gather analog; lossless because shard
-  boundaries are frame multiples, SURVEY.md finding #3) or **on-device**
-  via ``jax.lax.all_gather`` of the fixed-shape field payloads over ICI —
-  the exact analog of the reference's max-padded NCCL AllGather
-  (``fl_gpu.cu:144-194``), with XLA inserting the collective — after which
-  host 0 folds the replicated result.
+* ``jax.shard_map`` runs the single-device codec per shard: dense
+  placement (`ops/fl_jax.py`) for frame lengths that are a multiple of 32,
+  so each device holds its shard's exact packed stream;
+* the merge is either **host-side** (pull each shard's widths and packed
+  prefix and concatenate in rank order — the MPI-gather analog; lossless
+  because shard boundaries are frame multiples, SURVEY.md finding #3) or
+  **on-device**: gather the widths and per-shard totals, then
+  ``jax.lax.all_gather`` each shard's packed prefix padded to the largest
+  one — the reference's metadata allgather + max-padded ``ncclAllGather``
+  (``fl_gpu.cu:101-194``), with XLA inserting the collectives.
 
 Per-shard sizes travel implicitly: widths (`bits`) determine every offset,
 so the reference's ``MPI_Allgather`` of {bitsSize, valuesSize, inputSize}
@@ -43,11 +44,9 @@ from ..ops.bitpack import FRAME_LENGTH
 from ..ops.fields import fold, unfold
 
 AXIS = "dp"
-LANES_ = 128              # u32 words per device-array row (ops/lanes.py)
 
 # jitted shard_map programs, keyed by (mesh, static config) — rebuilding
-# the wrapped function per call would retrace/redispatch every time (a
-# measured 77x slowdown on chip).
+# the wrapped function per call would retrace and recompile every time.
 _JIT_CACHE: dict = {}
 
 
@@ -56,6 +55,12 @@ def _cached(key, build):
     if fn is None:
         fn = _JIT_CACHE[key] = build()
     return fn
+
+
+def _shard_program(key, fn, mesh, in_specs, out_specs):
+    return _cached(key, lambda: jax.jit(jax.shard_map(
+        fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+        check_vma=False)))
 
 
 def make_mesh(num_devices: int | None = None) -> Mesh:
@@ -85,35 +90,14 @@ class ShardPlan(NamedTuple):
     ns: np.ndarray           # i64[num_shards] true bytes per shard
     total: int
 
-    @property
-    def frames_pad(self) -> int:
-        return self.shard_npad // FRAME_LENGTH
-
 
 def plan_shards(total: int, num_shards: int,
                 frame_length: int = FRAME_LENGTH,
-                bucket_frames: int = 8192) -> ShardPlan:
+                bucket_frames: int = fl_jax.BUCKET_FRAMES) -> ShardPlan:
     chunk = (total // (frame_length * num_shards)) * frame_length
     ns = np.full(num_shards, chunk, np.int64)
     ns[-1] = total - chunk * (num_shards - 1)
     npad = fl_jax.pad_to_frames(int(ns.max()), frame_length, bucket_frames)
-    if frame_length == 128:
-        # Align the padded shard buffer to EVERY dense kernel block
-        # (general encode/decode tiles + the uniform kernels' tile), so
-        # the dense sharded paths are taken for any (device count ×
-        # size × bucket) combination — without this, an off-size bucket
-        # silently fell back to the host-unfold fields path
-        # (rows_shard % R != 0) or to the general window decoder
-        # (rows_shard % Ru != 0): data-independent perf cliffs.
-        # Padding is junk-only (true sizes travel in ``ns``), so output
-        # bytes are unchanged.
-        import math
-
-        from ..ops import fl_dense_pallas as fdp
-        rows_align = math.lcm(fdp.DENSE_TILE_R, fdp.DENSE_DEC_TILE_R,
-                              fdp.DENSE_UNIFORM_TILE_R)
-        align = rows_align * 512
-        npad = -(-npad // align) * align
     return ShardPlan(num_shards, npad, ns, total)
 
 
@@ -131,336 +115,108 @@ def _frames_of(plan: ShardPlan, i: int, frame_length: int) -> int:
     return (int(plan.ns[i]) + frame_length - 1) // frame_length
 
 
-# ---------------------------------------------------------------------------
-# FL — sharded field kernels
-# ---------------------------------------------------------------------------
+def _shard_rows(x: jax.Array) -> list:
+    """The ``(1, K)`` per-device blocks of an ``(N, K)`` array sharded over
+    ``dp``, in rank order, each still on its own device (slicing one then
+    moves only that device's bytes)."""
+    rows = {s.index[0].start or 0: s.data for s in x.addressable_shards}
+    return [rows[i] for i in range(len(rows))]
 
-def _bits_spec(frame_length: int, shard_words: int):
-    """PartitionSpec for the local encode's bits output — rank depends on
-    which kernel backend is selected (Pallas returns 2-D widths)."""
-    rank = 2 if fl_jax._use_pallas(frame_length, shard_words) else 1
-    return P(AXIS, *([None] * rank))
 
+# ---------------------------------------------------------------------------
+# FL — sharded programs
+# ---------------------------------------------------------------------------
 
 def _fl_local_encode(frame_length):
     def f(words, n):
-        bits, fields = fl_jax.encode_fields_device(
-            words[0], n[0], frame_length)
-        return bits[None], fields[None]
+        bits, dense, total = fl_jax.fl_encode_dense(
+            words[0], n[0], frame_length=frame_length)
+        return bits[None], dense[None], total[None]
     return f
 
 
 def fl_compress_sharded(mesh: Mesh, words2d: jax.Array, ns: jax.Array,
                         frame_length: int = FRAME_LENGTH):
-    """Per-shard field encode; outputs stay sharded over ``dp`` (the host
-    later pulls shard slices in rank order — MPI-gather analog).
-
-    ``words2d``: u32[N_shards, shard_npad/4].  Returns ``(bits, fields)``;
-    ``bits`` is u8[N, Fp] (XLA kernel) or u8[N, rows, fpr] (Pallas) — a
-    host ``reshape(-1)`` per shard yields frame order either way.
-    """
-    shard_words = words2d.shape[1]
-    fn = _cached(
-        ("fl_enc", mesh, frame_length,
-         fl_jax._use_pallas(frame_length, shard_words)),
-        lambda: jax.jit(jax.shard_map(
-            _fl_local_encode(frame_length), mesh=mesh,
-            in_specs=(P(AXIS, None), P(AXIS)),
-            out_specs=(_bits_spec(frame_length, shard_words),
-                       P(AXIS, None)), check_vma=False)))
+    """Per-shard dense encode; outputs stay sharded over ``dp`` (the host
+    later pulls each shard's packed prefix in rank order — the MPI-gather
+    analog).  ``words2d``: u32[N_shards, shard_npad/4].  Returns ``(bits
+    u8[N, Fp], dense u32[N, shard_npad/4], total_words i32[N])``."""
+    fn = _shard_program(
+        ("fl_enc", mesh, frame_length), _fl_local_encode(frame_length),
+        mesh, (P(AXIS, None), P(AXIS)),
+        (P(AXIS, None), P(AXIS, None), P(AXIS)))
     return fn(words2d, ns)
 
 
-def _fl_local_encode_dense(frame_length, wmin=1, route_nbits=None):
-    def f(words, n_frames):
-        from ..ops import fl_dense_pallas
-        outs = fl_dense_pallas.fl_encode_dense_pallas(
-            words[0], n_frames[0], wmin=wmin, route_nbits=route_nbits)
-        bits2d, dense, total = outs[:3]
-        # 5th output (plan-violation flag) exists only when the plan is
-        # narrower than the defaults; emit a zero otherwise so the
-        # shard program has one shape
-        flag = outs[4] if len(outs) > 4 else jnp.int32(0)
-        return (bits2d[None], dense[None], total[None],
-                flag.reshape(1))
-    return f
-
-
-def fl_compress_sharded_dense(mesh: Mesh, words2d: jax.Array,
-                              nframes: jax.Array,
-                              frame_length: int = FRAME_LENGTH,
-                              wmin: int = 1,
-                              route_nbits: int | None = None):
-    """Per-shard DENSE encode: each chip assembles its own packed byte
-    stream on device (no host fold anywhere); the host later pulls only
-    each shard's exact compressed prefix.  Frame-aligned shard boundaries
-    make the byte concatenation the reference merge exactly.
-
-    ``wmin``/``route_nbits``: SPECULATIVE stream plan (exp51) shared by
-    every shard — the per-shard flags (4th return, i32[N]) are
-    authoritative; any nonzero flag means that shard's dense stream is
-    junk and the caller re-runs the default program."""
-    fn = _cached(
-        ("fl_enc_dense", mesh, frame_length, wmin, route_nbits),
-        lambda: jax.jit(jax.shard_map(
-            _fl_local_encode_dense(frame_length, wmin, route_nbits),
-            mesh=mesh,
-            in_specs=(P(AXIS, None), P(AXIS)),
-            out_specs=(P(AXIS, None, None), P(AXIS, None), P(AXIS),
-                       P(AXIS)),
-            check_vma=False)))
-    return fn(words2d, nframes)
-
-
-def _fl_local_encode_dense_uniform(fb, tile_r):
-    def f(words, n_frames):
-        from ..ops import fl_dense_pallas
-        nref = (fl_dense_pallas.uniform_nref(fb, tile_r)
-                if tile_r else 1)
-        b2, dense, flag = fl_dense_pallas.fl_encode_dense_uniform_pallas(
-            words[0], n_frames[0], fb, tile_r=tile_r, nref=nref)
-        return b2[None], dense[None], flag[None]
-    return f
-
-
-def fl_compress_sharded_dense_uniform(mesh: Mesh, words2d: jax.Array,
-                                      nframes: jax.Array, fb: int,
-                                      tile_r: int | None = None):
-    """Per-shard SINGLE-WIDTH dense encode (speculative — see
-    ops/fl_dense_pallas.py): every chip runs the stripped BlockSpec
-    kernel; the caller validates from the pulled widths (or the
-    per-shard flags) and re-runs the general program on a miss."""
-    fn = _cached(
-        ("fl_enc_dense_u", mesh, fb, tile_r),
-        lambda: jax.jit(jax.shard_map(
-            _fl_local_encode_dense_uniform(fb, tile_r), mesh=mesh,
-            in_specs=(P(AXIS, None), P(AXIS)),
-            out_specs=(P(AXIS, None, None), P(AXIS, None), P(AXIS)),
-            check_vma=False)))
-    return fn(words2d, nframes)
-
-
-def _fl_local_decode_dense_uniform(fb, rows_shard, tile_r):
-    def f(dense, n_frames):
-        from ..ops import fl_dense_pallas
-        nref = (fl_dense_pallas.uniform_nref(fb, tile_r)
-                if tile_r else 1)
-        out = fl_dense_pallas.fl_decode_dense_uniform_pallas(
-            dense[0], fb, rows_shard, tile_r=tile_r, nref=nref)
-        return out[None]
-    return f
-
-
-def fl_decompress_sharded_dense_uniform(mesh: Mesh, dense3d, nframes,
-                                        fb: int, rows_shard: int,
-                                        tile_r: int | None = None):
-    """Per-shard SINGLE-WIDTH dense decode (exact — the widths header is
-    known): each chip block-walks its own compressed slice."""
-    fn = _cached(
-        ("fl_dec_dense_u", mesh, fb, rows_shard, tile_r),
-        lambda: jax.jit(jax.shard_map(
-            _fl_local_decode_dense_uniform(fb, rows_shard, tile_r),
-            mesh=mesh,
-            in_specs=(P(AXIS, None, None), P(AXIS)),
-            out_specs=P(AXIS, None, None), check_vma=False)))
-    return fn(dense3d, nframes)
-
-
-def _fl_local_encode_dense_constant(cbyte, fb, tile_r):
-    def f(words, n_frames):
-        from ..ops import fl_dense_pallas
-        b2, dense, flag = fl_dense_pallas.fl_encode_dense_constant_pallas(
-            words[0], n_frames[0], cbyte, fb, tile_r=tile_r)
-        return b2[None], dense.reshape(-1)[None], flag.reshape(1)
-    return f
-
-
-def fl_compress_sharded_dense_constant(mesh: Mesh, words2d: jax.Array,
-                                       nframes: jax.Array, cbyte: int,
-                                       fb: int,
-                                       tile_r: int | None = None):
-    """Per-shard CONSTANT-STREAM dense encode (speculative verify-and-
-    broadcast kernels, exp52): every chip verifies its shard equals
-    ``cbyte`` and synthesizes the packed pattern without routing.  The
-    per-shard flags are authoritative — any nonzero flag falls back to
-    the uniform/general shard programs.  (HOST-facing compress takes
-    the closed-form container instead; this is the device-resident
-    pipeline path.)"""
-    fn = _cached(
-        ("fl_enc_dense_c", mesh, cbyte, fb, tile_r),
-        lambda: jax.jit(jax.shard_map(
-            _fl_local_encode_dense_constant(cbyte, fb, tile_r),
-            mesh=mesh,
-            in_specs=(P(AXIS, None), P(AXIS)),
-            out_specs=(P(AXIS, None, None), P(AXIS, None), P(AXIS)),
-            check_vma=False)))
-    return fn(words2d, nframes)
-
-
-def _fl_local_decode_dense_constant(cbyte, fb, rows_shard, tile_r):
-    def f(dense, vsizes):
-        from ..ops import fl_dense_pallas
-        out, flag = fl_dense_pallas.fl_decode_dense_constant_pallas(
-            dense[0], vsizes[0], cbyte, fb, rows_shard, tile_r=tile_r)
-        return out[None], flag.reshape(1)
-    return f
-
-
-def fl_decompress_sharded_dense_constant(mesh: Mesh, dense3d,
-                                         vsizes: jax.Array, cbyte: int,
-                                         fb: int, rows_shard: int,
-                                         tile_r: int | None = None):
-    """Per-shard CONSTANT-STREAM dense decode: each chip byte-verifies
-    its exact compressed slice against the constant pattern and
-    broadcasts the byte.  Flags authoritative as on encode."""
-    fn = _cached(
-        ("fl_dec_dense_c", mesh, cbyte, fb, rows_shard, tile_r),
-        lambda: jax.jit(jax.shard_map(
-            _fl_local_decode_dense_constant(cbyte, fb, rows_shard,
-                                            tile_r),
-            mesh=mesh,
-            in_specs=(P(AXIS, None, None), P(AXIS)),
-            out_specs=(P(AXIS, None, None), P(AXIS)),
-            check_vma=False)))
-    return fn(dense3d, vsizes)
-
-
-def _fl_merged_encode_dense_meta(frame_length):
-    def f(words, n_frames):
-        from ..ops import fl_dense_pallas
-        bits2d, dense, total, _ = fl_dense_pallas.fl_encode_dense_pallas(
-            words[0], n_frames[0])
-        # metadata all-gather only (the reference's MPI_Allgather of
-        # sizes, fl_gpu.cu:101-106): widths are ~0.8% of N and the
-        # totals are scalars; the dense payload STAYS sharded until the
-        # host has sized the prefix gather below.
-        return (jax.lax.all_gather(bits2d, AXIS), dense[None],
-                jax.lax.all_gather(total, AXIS))
-    return f
-
-
-# Row bucket for the prefix gather's static shape: compile one gather
-# executable per 256-row (128 KiB) step of the max shard's compressed
-# size, not one per exact size.
-_GATHER_ROW_BUCKET = 256
-
-
-def fl_compress_merged_dense(mesh: Mesh, words2d: jax.Array,
-                             nframes: jax.Array,
-                             frame_length: int = FRAME_LENGTH):
-    """Two-step ICI merge — the reference's metadata-allgather +
-    max-padded payload allgather (``fl_gpu.cu:101-194``): step 1 gathers
-    the small widths + per-shard compressed totals; step 2 all-gathers
-    only each shard's compressed PREFIX, padded to the max shard's
-    bucketed size.  ICI traffic is O(max-shard-compressed · N_dev), not
-    O(input) — the reference pads to max *payload* size, never worst
-    case, and so does this (VERDICT r3 weak #7)."""
-    fn = _cached(
-        ("fl_merged_dense_meta", mesh, frame_length),
-        lambda: jax.jit(jax.shard_map(
-            _fl_merged_encode_dense_meta(frame_length), mesh=mesh,
-            in_specs=(P(AXIS, None), P(AXIS)),
-            out_specs=(P(), P(AXIS, None), P()), check_vma=False)))
-    bits_g, dense_sh, totals_g = fn(words2d, nframes)
-    totals = np.asarray(jax.device_get(totals_g))
-    flat_len = dense_sh.shape[1]
-    rows_total = flat_len // LANES_
-    wrows = -(-max(int(totals.max()), 1) // (LANES_ * _GATHER_ROW_BUCKET))
-    wrows = min(wrows * _GATHER_ROW_BUCKET, rows_total)
-
-    def _gather(d):
-        return jax.lax.all_gather(
-            d[0].reshape(rows_total, LANES_)[:wrows].reshape(-1), AXIS)
-
-    gather = _cached(
-        ("fl_gather_prefix", mesh, flat_len, wrows),
-        lambda: jax.jit(jax.shard_map(
-            _gather, mesh=mesh, in_specs=(P(AXIS, None),),
-            out_specs=P(), check_vma=False)))
-    return bits_g, gather(dense_sh), totals_g
-
-
-def _fl_merged_encode(frame_length):
+def _fl_merged_encode_meta(frame_length):
     def f(words, n):
-        bits, fields = fl_jax.encode_fields_device(
-            words[0], n[0], frame_length)
-        # ICI all-gather of the fixed-shape payloads — the analog of the
-        # reference's max-padded ncclAllGather (fl_gpu.cu:144-194); every
-        # chip redundantly holds the gathered result, as there.
-        bits_g = jax.lax.all_gather(bits, AXIS)
-        fields_g = jax.lax.all_gather(fields, AXIS)  # (N, Wp)
-        return bits_g, fields_g
+        bits, dense, total = fl_jax.fl_encode_dense(
+            words[0], n[0], frame_length=frame_length)
+        # metadata all-gather only (the reference's MPI_Allgather of
+        # sizes, fl_gpu.cu:101-106): widths are 1/L of the input and the
+        # totals are scalars; the packed streams STAY sharded until the
+        # host has sized the prefix gather below.
+        return (jax.lax.all_gather(bits, AXIS), dense[None],
+                jax.lax.all_gather(total, AXIS))
     return f
 
 
 def fl_compress_merged(mesh: Mesh, words2d: jax.Array, ns: jax.Array,
                        frame_length: int = FRAME_LENGTH):
-    """Encode + on-device all-gather; replicated outputs on every chip."""
-    fn = _cached(
-        ("fl_merged", mesh, frame_length,
-         fl_jax._use_pallas(frame_length, words2d.shape[1])),
-        lambda: jax.jit(jax.shard_map(
-            _fl_merged_encode(frame_length), mesh=mesh,
-            in_specs=(P(AXIS, None), P(AXIS)),
-            out_specs=(P(), P()), check_vma=False)))
-    return fn(words2d, ns)
-
-
-def _fl_local_decode_dense(frame_length, wmin, route_nbits):
-    def f(dense, bits2d, woffs, nframes):
-        from ..ops import fl_dense_pallas
-        out = fl_dense_pallas.fl_decode_dense_pallas(
-            dense[0], bits2d[0], woffs[0], nframes[0],
-            wmin=wmin, route_nbits=route_nbits)
-        return out[None]
-    return f
-
-
-def fl_decompress_sharded_dense(mesh: Mesh, dense3d, bits3d, woffs2d,
-                                nframes, frame_length: int = FRAME_LENGTH,
-                                wmin: int = 1,
-                                route_nbits: int | None = None):
-    """Per-shard DENSE decode: each chip unpacks its own compressed slice
-    (host does no unfold; host→device traffic is compressed bytes).
-    ``wmin``/``route_nbits``: EXACT stream plan over ALL shards (min
-    width / max routing bound — the shard program is shared, so one
-    static plan serves every shard)."""
-    fn = _cached(
-        ("fl_dec_dense", mesh, frame_length, wmin, route_nbits),
-        lambda: jax.jit(jax.shard_map(
-            _fl_local_decode_dense(frame_length, wmin, route_nbits),
-            mesh=mesh,
-            in_specs=(P(AXIS, None, None), P(AXIS, None, None),
-                      P(AXIS, None), P(AXIS)),
-            out_specs=P(AXIS, None, None), check_vma=False)))
-    return fn(dense3d, bits3d, woffs2d, nframes)
+    """Two-step on-device merge — the reference's metadata allgather +
+    max-padded payload allgather (``fl_gpu.cu:101-194``): step 1 gathers
+    the widths and per-shard totals; step 2 all-gathers only each shard's
+    packed PREFIX, padded to the largest shard's (bucketed) total.
+    Collective traffic is O(largest compressed shard · N_dev), not
+    O(input).  Returns replicated ``(bits u8[N, Fp], prefixes u32[N, K],
+    totals i32[N])``."""
+    fn = _shard_program(
+        ("fl_merged_meta", mesh, frame_length),
+        _fl_merged_encode_meta(frame_length), mesh,
+        (P(AXIS, None), P(AXIS)), (P(), P(AXIS, None), P()))
+    bits_g, dense_sh, totals_g = fn(words2d, ns)
+    totals = np.asarray(jax.device_get(totals_g))
+    nw = dense_sh.shape[1]
+    kw = fl_jax.transfer_words(int(totals.max()), nw)
+    gather = _shard_program(
+        ("fl_gather_prefix", mesh, nw, kw),
+        lambda d: jax.lax.all_gather(d[0, :kw], AXIS), mesh,
+        (P(AXIS, None),), P())
+    return bits_g, gather(dense_sh), totals_g
 
 
 def _fl_local_decode(frame_length):
-    def f(fields, bits, n):
-        out = fl_jax.decode_fields_device(fields[0], bits[0], n[0],
-                                          frame_length)
-        return out[None]
+    def f(dense, bits, n):
+        return fl_jax.fl_decode_dense(dense[0], bits[0], n[0],
+                                      frame_length=frame_length)[None]
     return f
 
 
-def fl_decompress_sharded(mesh: Mesh, fields2d: jax.Array, bits2d: jax.Array,
+def fl_decompress_sharded(mesh: Mesh, dense2d: jax.Array, bits2d: jax.Array,
                           ns: jax.Array, frame_length: int = FRAME_LENGTH):
-    """Distributed field decode — each shard decodes its own frame range.
-    The reference has no distributed decompression at all
-    (``main.cu:131-169`` falls back to single-process CPU).
+    """Per-shard dense decode — each device unpacks its own shard's packed
+    stream (``dense2d`` u32[N, K], any K) into u32[N, Fp·L/4].  The
+    reference has no distributed decompression at all (``main.cu:131-169``
+    falls back to single-process CPU)."""
+    fn = _shard_program(
+        ("fl_dec", mesh, frame_length), _fl_local_decode(frame_length),
+        mesh, (P(AXIS, None), P(AXIS, None), P(AXIS)), P(AXIS, None))
+    return fn(dense2d, bits2d, ns)
 
-    ``bits2d``: per-shard widths pre-shaped with
-    `fl_jax.prep_decode_bits` (so rank is 2 for XLA, 3 for Pallas).
-    """
-    bits_spec = P(AXIS, *([None] * (bits2d.ndim - 1)))
-    fn = _cached(
-        ("fl_dec", mesh, frame_length, bits2d.ndim),
-        lambda: jax.jit(jax.shard_map(
-            _fl_local_decode(frame_length), mesh=mesh,
-            in_specs=(P(AXIS, None), bits_spec, P(AXIS)),
-            out_specs=P(AXIS, None), check_vma=False)))
-    return fn(fields2d, bits2d, ns)
+
+def _fl_local_encode_fields(frame_length):
+    def f(words, n):
+        bits, fields = fl_jax.fl_encode_fields(
+            words[0], n[0], frame_length=frame_length)
+        return bits[None], fields[None]
+    return f
+
+
+def _fl_local_decode_fields(frame_length):
+    def f(fields, bits, n):
+        return fl_jax.fl_decode_fields(fields[0], bits[0], n[0],
+                                       frame_length=frame_length)[None]
+    return f
 
 
 # ---------------------------------------------------------------------------
@@ -468,7 +224,7 @@ def fl_decompress_sharded(mesh: Mesh, fields2d: jax.Array, bits2d: jax.Array,
 # ---------------------------------------------------------------------------
 
 def _rl_local_encode(block, n):
-    enc = rl_jax.rl_encode_device(block[0], n[0])
+    enc = rl_jax.rl_encode(block[0], n[0])
     return enc.counts[None], enc.values[None], enc.num_runs[None]
 
 
@@ -478,36 +234,29 @@ def rl_compress_sharded(mesh: Mesh, data2d: jax.Array, ns: jax.Array):
     given (data, shard plan).  The reference defines no distributed RL at
     all (RL exists only as a spec), so per-shard-concat is our canonical
     distributed semantics."""
-    fn = _cached(
-        ("rl_enc", mesh),
-        lambda: jax.jit(jax.shard_map(
-            _rl_local_encode, mesh=mesh,
-            in_specs=(P(AXIS, None), P(AXIS)),
-            out_specs=(P(AXIS, None), P(AXIS, None), P(AXIS)),
-            check_vma=False)))
+    fn = _shard_program(
+        ("rl_enc", mesh), _rl_local_encode, mesh,
+        (P(AXIS, None), P(AXIS)), (P(AXIS, None), P(AXIS, None), P(AXIS)))
     return fn(data2d, ns)
 
 
-def _rl_local_decode(out_pad, win_rows):
+def _rl_local_decode(out_pad):
     def f(counts, values, nr, n):
-        return rl_jax.rl_decode_device(counts[0], values[0], nr[0], n[0],
-                                       out_pad, win_rows=win_rows)[None]
+        return rl_jax.rl_decode(counts[0], values[0], nr[0], n[0],
+                                out_pad)[None]
     return f
 
 
 def rl_decompress_sharded(mesh: Mesh, counts2d, values2d, nrs, ns,
-                          out_pad: int, win_rows: int | None = None):
-    fn = _cached(
-        ("rl_dec", mesh, out_pad, win_rows),
-        lambda: jax.jit(jax.shard_map(
-            _rl_local_decode(out_pad, win_rows), mesh=mesh,
-            in_specs=(P(AXIS, None), P(AXIS, None), P(AXIS), P(AXIS)),
-            out_specs=P(AXIS, None), check_vma=False)))
+                          out_pad: int):
+    fn = _shard_program(
+        ("rl_dec", mesh, out_pad), _rl_local_decode(out_pad), mesh,
+        (P(AXIS, None), P(AXIS, None), P(AXIS), P(AXIS)), P(AXIS, None))
     return fn(counts2d, values2d, nrs, ns)
 
 
 # ---------------------------------------------------------------------------
-# Host-facing whole-file API (single host, N local chips).
+# Host-facing whole-file API (single host, N local devices).
 # ---------------------------------------------------------------------------
 
 def _superchunks(total: int, n_dev: int, frame_length: int):
@@ -518,107 +267,76 @@ def _superchunks(total: int, n_dev: int, frame_length: int):
     return step if total > step else None
 
 
+def _fl_prologue(data, mesh, frame_length, bucket_frames, compress):
+    """Shared head of the FL compress paths: the closed-form constant
+    container, the superchunk split, or ``None`` to go on."""
+    n_dev = mesh.devices.size
+    fl_jax._check_frame_length(frame_length)
+    # Whole-stream CONSTANT closed form: the host verifies (chunked
+    # early-exit probe) and synthesizes the container with no device
+    # round trip — the merge of N constant shards IS the constant
+    # container.
+    c = fl_jax._host_constant_byte(data)
+    if c is not None:
+        return FLCompressed(*fl_jax._constant_container(
+            c, data.size, frame_length), data.size)
+    step = _superchunks(data.size, n_dev, frame_length)
+    if step:
+        parts = [compress(data[o:o + step], mesh, frame_length,
+                          bucket_frames)
+                 for o in range(0, data.size, step)]
+        return parts[0].merge(*parts[1:])
+    return None
+
+
+def _merge_prefixes(plan, frame_length, bits_rows, prefix_rows):
+    """Rank-ordered container payload from per-shard widths and packed
+    prefixes (any array-likes whose leading words cover the prefix)."""
+    bits_parts, values_parts = [], []
+    for i in range(plan.num_shards):
+        bi = np.asarray(bits_rows[i])[: _frames_of(plan, i, frame_length)]
+        vsz = fl_jax.values_size(bi, int(plan.ns[i]), frame_length)
+        kw = fl_jax.transfer_words(-(-vsz // 4), prefix_rows[i].shape[-1])
+        vw = np.asarray(jax.device_get(prefix_rows[i][..., :kw])).reshape(-1)
+        bits_parts.append(bi)
+        values_parts.append(vw.view(np.uint8)[:vsz])
+    return FLCompressed(bits=np.concatenate(bits_parts),
+                        values=np.concatenate(values_parts),
+                        input_size=plan.total)
+
+
 def compress_fl(data: np.ndarray, mesh: Mesh | None = None,
                 frame_length: int = FRAME_LENGTH,
-                bucket_frames: int = 8192) -> FLCompressed:
+                bucket_frames: int = fl_jax.BUCKET_FRAMES) -> FLCompressed:
+    """Sharded FL encode with the rank-ordered host merge (``fl-dist``)."""
     data = np.asarray(data, np.uint8)
     if data.size == 0:
         return FLCompressed(np.zeros(0, np.uint8), np.zeros(0, np.uint8), 0)
     mesh = mesh or make_mesh()
+    done = _fl_prologue(data, mesh, frame_length, bucket_frames,
+                        compress_fl)
+    if done is not None:
+        return done
     n_dev = mesh.devices.size
-    # Whole-stream CONSTANT closed form (round 4b): the host API
-    # verifies (chunked early-exit probe) and synthesizes the container
-    # with no device round trip at all — the distributed merge of N
-    # constant shards IS the constant container.  Device-resident
-    # pipelines use fl_compress_sharded_dense_constant instead.
-    if frame_length % 8 == 0:
-        c = fl_jax._host_constant_byte(data)
-        if c is not None:
-            bits_c, values_c = fl_jax._constant_container(
-                c, data.size, frame_length)
-            return FLCompressed(bits_c, values_c, data.size)
-    step = _superchunks(data.size, n_dev, frame_length)
-    if step:
-        parts = [compress_fl(data[o:o + step], mesh, frame_length,
-                             bucket_frames)
-                 for o in range(0, data.size, step)]
-        return parts[0].merge(*parts[1:])
     plan = plan_shards(data.size, n_dev, frame_length, bucket_frames)
-    words2d = shard_host_data(data, plan).view(np.uint32)
-    nfs = [_frames_of(plan, i, frame_length) for i in range(n_dev)]
-    if fl_jax._use_dense(frame_length, plan.shard_npad // 4):
-        # dense per-shard streams: device assembles the exact packed
-        # bytes; host pulls only each shard's compressed prefix.
-        # Globally-uniform speculation, multi-chip: one host probe of
-        # the file head selects the stripped single-width shard program;
-        # the pulled per-shard flags are authoritative and a miss
-        # re-runs the general program (ops/fl_dense_pallas.py).
-        from ..ops import fl_dense_pallas
-        wd = jnp.asarray(words2d)
-        nfs_arr = jnp.asarray(
-            [-(-int(x) // frame_length) for x in plan.ns], jnp.int32)
-        Ru = fl_dense_pallas.DENSE_UNIFORM_TILE_R
-        fbp = (fl_dense_pallas.host_probe_uniform_b(data, Ru)
-               if frame_length == 128
-               and plan.shard_npad % (Ru * 512) == 0 else None)
-        bits_h = dense_d = None
-        if fbp is not None:
-            # per-width tile choice (see uniform_tile_r); re-check mask
-            # availability at the upgraded tile before switching (the
-            # probe proved the BASE tile only)
-            Ru_fb = fl_dense_pallas.uniform_tile_r(
-                fbp, plan.shard_npad // 512)
-            if (Ru_fb != Ru and not
-                    fl_dense_pallas.uniform_kernel_available(fbp,
-                                                             Ru_fb)):
-                Ru_fb = Ru
-            b_u, d_u, flags = fl_compress_sharded_dense_uniform(
-                mesh, wd, nfs_arr, fbp, tile_r=Ru_fb)
-            if not int(np.asarray(jax.device_get(flags)).sum()):
-                bits_h = np.asarray(jax.device_get(b_u))
-                dense_d = d_u.reshape(n_dev, -1)
-        if bits_h is None:
-            # SPECULATIVE stream plan for the general shard program
-            # (exp51, VERDICT r4 item 8): probed from the file head on
-            # host, verified per shard by the kernel flags; a miss on
-            # any shard re-runs the default program.
-            wq_e, nq_e = fl_dense_pallas.host_probe_route_plan(data)
-            if wq_e > 1 or nq_e is not None:
-                b_p, d_p, _, flags_p = fl_compress_sharded_dense(
-                    mesh, wd, nfs_arr, frame_length,
-                    wmin=wq_e, route_nbits=nq_e)
-                if not int(np.asarray(jax.device_get(flags_p)).sum()):
-                    bits_h = np.asarray(jax.device_get(b_p))
-                    dense_d = d_p.reshape(n_dev, -1)
-        if bits_h is None:
-            bits_d, dense_d, _, _ = fl_compress_sharded_dense(
-                mesh, wd, nfs_arr, frame_length)
-            bits_h = np.asarray(jax.device_get(bits_d))
-        bits_parts, values_parts = [], []
-        off = 0
-        for i in range(n_dev):
-            bi = bits_h[i].reshape(-1)[: nfs[i]]
-            counts = np.minimum(
-                int(plan.ns[i]) - np.arange(nfs[i], dtype=np.int64)
-                * frame_length, frame_length)
-            vsz = int(((bi.astype(np.int64) * counts + 7) // 8).sum())
-            vw = np.asarray(jax.device_get(dense_d[i, : -(-vsz // 4)]))
-            bits_parts.append(bi)
-            values_parts.append(vw.view(np.uint8)[:vsz])
-            off += vsz
-        return FLCompressed(bits=np.concatenate(bits_parts),
-                            values=np.concatenate(values_parts),
-                            input_size=data.size)
-    bits, fields = jax.device_get(fl_compress_sharded(
-        mesh, jnp.asarray(words2d), jnp.asarray(plan.ns, jnp.int32),
-        frame_length))
-    # Rank-ordered merge: shard boundaries are frame-aligned, so the global
-    # bits/fields arrays are plain concatenations of per-shard prefixes
-    # (MergeFLCompressed analog, fl_common.cuh:95); one host fold then
-    # yields the byte-exact container payload.
+    words2d = jnp.asarray(shard_host_data(data, plan).view(np.uint32))
+    ns = jnp.asarray(plan.ns, jnp.int32)
+    if fl_jax.dense_route(frame_length):
+        bits_d, dense_d, _ = fl_compress_sharded(mesh, words2d, ns,
+                                                 frame_length)
+        return _merge_prefixes(plan, frame_length,
+                               np.asarray(jax.device_get(bits_d)),
+                               _shard_rows(dense_d))
+    # Field route: per-shard fields, one host fold over the rank-ordered
+    # concatenation (shard boundaries are frame-aligned).
+    fn = _shard_program(
+        ("fl_enc_fields", mesh, frame_length),
+        _fl_local_encode_fields(frame_length), mesh,
+        (P(AXIS, None), P(AXIS)), (P(AXIS, None), P(AXIS, None)))
+    bits, fields = jax.device_get(fn(words2d, ns))
     wpf = frame_length // 4
-    bits_all = np.concatenate(
-        [np.asarray(bits[i]).reshape(-1)[: nfs[i]] for i in range(n_dev)])
+    nfs = [_frames_of(plan, i, frame_length) for i in range(n_dev)]
+    bits_all = np.concatenate([bits[i, : nfs[i]] for i in range(n_dev)])
     fields_all = np.concatenate(
         [fields[i, : nfs[i] * wpf] for i in range(n_dev)])
     return FLCompressed(
@@ -629,98 +347,65 @@ def compress_fl(data: np.ndarray, mesh: Mesh | None = None,
 
 def compress_fl_ici(data: np.ndarray, mesh: Mesh | None = None,
                     frame_length: int = FRAME_LENGTH,
-                    bucket_frames: int = 8192) -> FLCompressed:
+                    bucket_frames: int = fl_jax.BUCKET_FRAMES) -> FLCompressed:
     """Like :func:`compress_fl` but the payload gather happens on device
-    over ICI (all-gather, replicated result — the NCCL-path analog); the
-    host pulls one replicated array instead of N shard slices."""
+    (all-gather of the packed prefixes, replicated result — the NCCL-path
+    analog); the host pulls one replicated array instead of N shard
+    slices.  Frame lengths off the dense route take the host merge."""
     data = np.asarray(data, np.uint8)
     if data.size == 0:
         return FLCompressed(np.zeros(0, np.uint8), np.zeros(0, np.uint8), 0)
+    if not fl_jax.dense_route(frame_length):
+        return compress_fl(data, mesh, frame_length, bucket_frames)
     mesh = mesh or make_mesh()
-    n_dev = mesh.devices.size
-    # CONSTANT closed form — see compress_fl (no device round trip).
-    if frame_length % 8 == 0:
-        c = fl_jax._host_constant_byte(data)
-        if c is not None:
-            bits_c, values_c = fl_jax._constant_container(
-                c, data.size, frame_length)
-            return FLCompressed(bits_c, values_c, data.size)
-    step = _superchunks(data.size, n_dev, frame_length)
-    if step:
-        parts = [compress_fl_ici(data[o:o + step], mesh, frame_length,
-                                 bucket_frames)
-                 for o in range(0, data.size, step)]
-        return parts[0].merge(*parts[1:])
-    plan = plan_shards(data.size, n_dev, frame_length, bucket_frames)
-    if fl_jax._use_dense(frame_length, plan.shard_npad // 4):
-        words2d = shard_host_data(data, plan).view(np.uint32)
-        nfs = [_frames_of(plan, i, frame_length) for i in range(n_dev)]
-        bits_g, dense_g, _ = fl_compress_merged_dense(
-            mesh, jnp.asarray(words2d),
-            jnp.asarray([-(-int(x) // frame_length) for x in plan.ns],
-                        jnp.int32), frame_length)
-        bits_h = np.asarray(jax.device_get(bits_g))
-        dense_h = np.asarray(jax.device_get(dense_g))
-        bits_parts, values_parts = [], []
-        for i in range(n_dev):
-            bi = bits_h[i].reshape(-1)[: nfs[i]]
-            counts = np.minimum(
-                int(plan.ns[i]) - np.arange(nfs[i], dtype=np.int64)
-                * frame_length, frame_length)
-            vsz = int(((bi.astype(np.int64) * counts + 7) // 8).sum())
-            bits_parts.append(bi)
-            values_parts.append(
-                np.ascontiguousarray(
-                    dense_h[i, : -(-vsz // 4)]).view(np.uint8)[:vsz])
-        return FLCompressed(bits=np.concatenate(bits_parts),
-                            values=np.concatenate(values_parts),
-                            input_size=data.size)
-    words2d = shard_host_data(data, plan).view(np.uint32)
-    bits_g, fields_g = jax.device_get(fl_compress_merged(
-        mesh, jnp.asarray(words2d), jnp.asarray(plan.ns, jnp.int32),
-        frame_length))
-    wpf = frame_length // 4
-    nfs = [_frames_of(plan, i, frame_length) for i in range(n_dev)]
-    bits_h = np.asarray(bits_g)
-    bits_all = np.concatenate(
-        [bits_h[i].reshape(-1)[: nfs[i]] for i in range(n_dev)])
-    fields_all = np.concatenate(
-        [np.asarray(fields_g)[i, : nfs[i] * wpf] for i in range(n_dev)])
-    return FLCompressed(
-        bits=bits_all,
-        values=fold(fields_all, bits_all, data.size, frame_length),
-        input_size=data.size)
+    done = _fl_prologue(data, mesh, frame_length, bucket_frames,
+                        compress_fl_ici)
+    if done is not None:
+        return done
+    plan = plan_shards(data.size, mesh.devices.size, frame_length,
+                       bucket_frames)
+    bits_g, prefixes_g, _ = fl_compress_merged(
+        mesh, jnp.asarray(shard_host_data(data, plan).view(np.uint32)),
+        jnp.asarray(plan.ns, jnp.int32), frame_length)
+    return _merge_prefixes(plan, frame_length,
+                           np.asarray(jax.device_get(bits_g)),
+                           np.asarray(jax.device_get(prefixes_g)))
 
 
 def decompress_fl(comp: FLCompressed, mesh: Mesh | None = None,
                   frame_length: int = FRAME_LENGTH,
-                  bucket_frames: int = 8192) -> np.ndarray:
+                  bucket_frames: int = fl_jax.BUCKET_FRAMES) -> np.ndarray:
     n = int(comp.input_size)
     if n == 0 or comp.bits.size == 0:
         return np.zeros(0, np.uint8)
+    fl_jax._check_frame_length(frame_length)
     mesh = mesh or make_mesh()
     n_dev = mesh.devices.size
-    # CONSTANT closed form (round 4b): exact host verify of the
-    # container against the repeating frame pattern → one memset, no
-    # device work (device-resident pipelines use
-    # fl_decompress_sharded_dense_constant instead).
+    frames = -(-n // frame_length)
+    if comp.bits.size < frames:
+        raise ValueError(
+            "fl decode: corrupt container (bits array shorter than "
+            f"frame count: {comp.bits.size} < {frames})")
+    # CONSTANT closed form: exact host verify of the container against
+    # the repeating frame pattern → one memset, no device work.
     c = fl_jax.host_constant_decode_probe(comp.bits, comp.values, n,
                                           frame_length)
     if c is not None:
         return np.full(n, c, np.uint8)
-    # width-8 identity (round 5): all-8 widths ⇒ payload == output.
+    # width-8 identity: all-8 widths ⇒ payload == output.
     out8 = fl_jax.host_identity_decode_probe(comp.bits, comp.values, n,
                                              frame_length)
     if out8 is not None:
         return out8
+    voffs = np.concatenate(
+        [[0], np.cumsum(fl_jax.frame_value_bytes(comp.bits, n,
+                                                 frame_length))])
+    if voffs[-1] > comp.values.size:
+        raise ValueError(
+            "fl decode: corrupt container (packed stream shorter than "
+            f"the widths imply: {comp.values.size} < {voffs[-1]})")
     step = _superchunks(n, n_dev, frame_length)
     if step:
-        frames = -(-n // frame_length)
-        counts = np.minimum(
-            n - np.arange(frames, dtype=np.int64) * frame_length,
-            frame_length)
-        fbytes = (comp.bits[:frames].astype(np.int64) * counts + 7) // 8
-        voffs = np.concatenate([[0], np.cumsum(fbytes)])
         fpc = step // frame_length
         parts = []
         for off in range(0, n, step):
@@ -733,121 +418,46 @@ def decompress_fl(comp: FLCompressed, mesh: Mesh | None = None,
                                        bucket_frames))
         return np.concatenate(parts)
     plan = plan_shards(n, n_dev, frame_length, bucket_frames)
-    wpf = frame_length // 4
-    from ..ops import fl_dense_pallas
-    R = fl_dense_pallas.DENSE_DEC_TILE_R
-    rows_shard = plan.shard_npad // 512
-    if (fl_jax._use_dense_dec(frame_length, plan.shard_npad // 4)
-            and rows_shard % R == 0):
-        # dense sharded decode: each chip unpacks its own compressed
-        # slice; no host unfold, host->device is compressed bytes only
-        if comp.bits.size < -(-n // frame_length):
-            raise ValueError(
-                "fl decode: corrupt container (bits array shorter than "
-                f"frame count: {comp.bits.size} < {-(-n // frame_length)})")
-        # uniform widths header → single-width sharded block-walk decode
-        frames_all = -(-n // frame_length)
-        ba = comp.bits[:frames_all]
-        fbu = int(ba[0]) if ba.size and (ba == ba[0]).all() else 0
-        Ru = (fl_dense_pallas.uniform_tile_r(fbu, rows_shard) if fbu
-              else 0)
-        if (fbu and frame_length == 128 and rows_shard % Ru == 0
-                and fl_dense_pallas.uniform_kernel_available(
-                    fbu, Ru, inverse=True)):
-            Kr = fbu * Ru // 8
-            need = rows_shard // Ru * Kr
-            dense3d = np.zeros((n_dev, need, 128), np.uint32)
-            nfr = np.zeros(n_dev, np.int32)
-            fstart = 0
-            voff = 0
-            for i in range(n_dev):
-                nf_i = _frames_of(plan, i, frame_length)
-                counts = np.minimum(
-                    int(plan.ns[i]) - np.arange(nf_i, dtype=np.int64)
-                    * frame_length, frame_length)
-                vsz = int(((np.int64(fbu) * counts + 7) // 8).sum())
-                dense3d[i].reshape(-1).view(np.uint8)[:vsz] = \
-                    comp.values[voff:voff + vsz]
-                nfr[i] = nf_i
-                fstart += nf_i
-                voff += vsz
-            out = jax.device_get(fl_decompress_sharded_dense_uniform(
-                mesh, jnp.asarray(dense3d), jnp.asarray(nfr), fbu,
-                rows_shard, tile_r=Ru))
-            out_bytes = np.ascontiguousarray(
-                np.asarray(out)).view(np.uint8).reshape(n_dev, -1)
-            return np.concatenate(
-                [out_bytes[i, : plan.ns[i]] for i in range(n_dev)])
-        grid_l = rows_shard // R
-        pad_rows = rows_shard + R + 32
-        dense3d = np.zeros((n_dev, pad_rows, 128), np.uint32)
-        bits3d = np.zeros((n_dev, rows_shard, 4), np.uint8)
-        woffs2d = np.zeros((n_dev, grid_l), np.int32)
-        nfr = np.zeros(n_dev, np.int32)
-        fstart = 0
-        voff = 0
-        wmin_all, dnb_all = 8, 0
-        for i in range(n_dev):
-            nf_i = _frames_of(plan, i, frame_length)
-            bi = comp.bits[fstart:fstart + nf_i]
-            counts = np.minimum(
-                int(plan.ns[i]) - np.arange(nf_i, dtype=np.int64)
-                * frame_length, frame_length)
-            vsz = int(((bi.astype(np.int64) * counts + 7) // 8).sum())
-            vslice = comp.values[voff:voff + vsz]
-            dense3d[i].reshape(-1).view(np.uint8)[: vsz] = vslice
-            bits3d[i].reshape(-1)[:nf_i] = bi
-            fb = np.zeros(rows_shard * 4, np.int64)
-            fb[:nf_i] = bi
-            wper = fb.reshape(grid_l, -1).sum(axis=1) * 4
-            woffs2d[i] = np.concatenate(
-                [[0], np.cumsum(wper)[:-1]]).astype(np.int32)
-            nfr[i] = nf_i
-            if nf_i:
-                wm_i, _, dnb_i = fl_dense_pallas.host_route_plan(
-                    bi, nf_i, enc_r=R, dec_r=R)
-                wmin_all = min(wmin_all, wm_i)
-                dnb_all = max(dnb_all, dnb_i)
-            fstart += nf_i
-            voff += vsz
-        # EXACT stream plan over all shards (exp51: +12% pair on the
-        # reference BMP), quantized to the compile-variant grid
-        wq, nq = fl_dense_pallas.quantize_plan(
-            wmin_all, dnb_all or None,
-            (7 * (R * 16 - 1) + 1024).bit_length())
-        out = jax.device_get(fl_decompress_sharded_dense(
-            mesh, jnp.asarray(dense3d), jnp.asarray(bits3d),
-            jnp.asarray(woffs2d), jnp.asarray(nfr), frame_length,
-            wmin=wq, route_nbits=nq))
-        out_bytes = np.ascontiguousarray(
-            np.asarray(out)).view(np.uint8).reshape(n_dev, -1)
-        return np.concatenate(
-            [out_bytes[i, : plan.ns[i]] for i in range(n_dev)])
-    # Host unfold (cheap memcpy-class pass), then sharded device decode.
-    fields_all = unfold(comp.values, comp.bits, n, frame_length)
-    fields2d = np.zeros((n_dev, plan.frames_pad * wpf), np.uint32)
-    bits2d = np.zeros((n_dev, plan.frames_pad), np.uint8)
-    fstart = 0
+    fpad = plan.shard_npad // frame_length
+    bits2d = np.zeros((n_dev, fpad), np.uint8)
+    f0s = np.concatenate(
+        [[0], np.cumsum([_frames_of(plan, i, frame_length)
+                         for i in range(n_dev)])])
     for i in range(n_dev):
-        nf_i = _frames_of(plan, i, frame_length)
-        bits2d[i, :nf_i] = comp.bits[fstart:fstart + nf_i]
-        fields2d[i, : nf_i * wpf] = fields_all[
-            fstart * wpf: (fstart + nf_i) * wpf]
-        fstart += nf_i
-    bits_prep = np.stack([
-        fl_jax.prep_decode_bits(bits2d[i], plan.shard_npad // 4,
-                                frame_length)
-        for i in range(n_dev)])
-    out = jax.device_get(fl_decompress_sharded(
-        mesh, jnp.asarray(fields2d), jnp.asarray(bits_prep),
-        jnp.asarray(plan.ns, jnp.int32), frame_length))
-    out_bytes = np.asarray(out).view(np.uint8).reshape(n_dev, -1)
+        bits2d[i, : f0s[i + 1] - f0s[i]] = comp.bits[f0s[i]:f0s[i + 1]]
+    ns = jnp.asarray(plan.ns, jnp.int32)
+    if fl_jax.dense_route(frame_length):
+        # each device unpacks its own shard's packed stream; only the
+        # compressed bytes go up
+        vsz = [int(voffs[f0s[i + 1]] - voffs[f0s[i]]) for i in range(n_dev)]
+        kw = fl_jax.transfer_words(-(-max(vsz) // 4), plan.shard_npad // 4)
+        vals2d = np.zeros((n_dev, kw * 4), np.uint8)
+        for i in range(n_dev):
+            vals2d[i, : vsz[i]] = comp.values[voffs[f0s[i]]:
+                                              voffs[f0s[i + 1]]]
+        out = fl_decompress_sharded(mesh, jnp.asarray(vals2d.view(np.uint32)),
+                                    jnp.asarray(bits2d), ns, frame_length)
+    else:
+        # field route: host unfold, then sharded device decode
+        wpf = frame_length // 4
+        fields_all = unfold(comp.values, comp.bits, n, frame_length)
+        fields2d = np.zeros((n_dev, fpad * wpf), np.uint32)
+        for i in range(n_dev):
+            fields2d[i, : (f0s[i + 1] - f0s[i]) * wpf] = fields_all[
+                f0s[i] * wpf: f0s[i + 1] * wpf]
+        fn = _shard_program(
+            ("fl_dec_fields", mesh, frame_length),
+            _fl_local_decode_fields(frame_length), mesh,
+            (P(AXIS, None), P(AXIS, None), P(AXIS)), P(AXIS, None))
+        out = fn(jnp.asarray(fields2d), jnp.asarray(bits2d), ns)
+    out_bytes = np.asarray(jax.device_get(out)).view(np.uint8).reshape(
+        n_dev, -1)
     return np.concatenate(
         [out_bytes[i, : plan.ns[i]] for i in range(n_dev)])
 
 
 def compress_rl(data: np.ndarray, mesh: Mesh | None = None,
-                bucket_frames: int = 8192) -> RLCompressed:
+                bucket_frames: int = fl_jax.BUCKET_FRAMES) -> RLCompressed:
     data = np.asarray(data, np.uint8)
     if data.size == 0:
         return RLCompressed(np.zeros(0, np.uint8), np.zeros(0, np.uint8), 0)
@@ -888,21 +498,7 @@ def decompress_rl(comp: RLCompressed, mesh: Mesh | None = None,
             nrs[i] = hi - lo
             ns[i] = int(comp.counts[lo:hi].astype(np.int64).sum())
     out_pad = max(bucket, -(-int(ns.max()) // bucket) * bucket)
-    # Exact static run-window hint from the host counts (the worst case
-    # reads ~8 compressed bytes per decoded byte; the hint shrinks the
-    # window DMA up to 16× on compressible data — rl_pallas.py).  The
-    # shard_map program is one executable, so take the max over shards.
-    from ..ops import rl_pallas
-    # the hint MUST be computed for the same tile size the device decode
-    # will pick (adaptive since round 4): a hint for a smaller tile can
-    # under-cover a bigger tile's run span
-    dec_r = rl_pallas.decode_tile_rows(out_pad // 128)
-    win_rows = max(
-        (rl_pallas.decode_window_rows(counts2d[i, : nrs[i]],
-                                      out_pad // 128, tile_rows=dec_r)
-         for i in range(n_dev) if nrs[i]), default=None)
     out = jax.device_get(rl_decompress_sharded(
         mesh, jnp.asarray(counts2d), jnp.asarray(values2d),
-        jnp.asarray(nrs), jnp.asarray(ns, jnp.int32), out_pad,
-        win_rows=win_rows))
+        jnp.asarray(nrs), jnp.asarray(ns, jnp.int32), out_pad))
     return np.concatenate([out[i, : ns[i]] for i in range(n_dev)])

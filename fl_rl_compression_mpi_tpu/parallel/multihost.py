@@ -1,10 +1,10 @@
-"""Multi-host (pod-slice) driver.
+"""Multi-host driver.
 
 The reference bootstraps multi-node runs with ``MPI_Init`` + an
 ``ncclUniqueId`` broadcast (``/root/reference/src/main.cu:35-70``), gives
 each rank a disjoint file chunk (``file_io.cu:28-71``) and gathers
 compressed payloads to rank 0 (``fl_gpu.cu:41-74`` MPI, ``:76-287`` NCCL).
-TPU-native, the same roles map to:
+Here the same roles map to:
 
 * process bootstrap → :func:`jax.distributed.initialize` (coordinator
   address instead of mpirun; one process per host);
@@ -44,6 +44,7 @@ import jax
 from .. import container, fileio
 from ..container import _HEADER
 from ..ops.bitpack import FRAME_LENGTH
+from ..ops import fl_jax
 from ..utils.timers import stage, stage_timers_enabled
 from . import dist
 
@@ -241,7 +242,7 @@ def verify_file_roundtrip(input_path: str, container_path: str,
 
 def compress_fl_file(input_path: str, output_path: str,
                      frame_length: int = FRAME_LENGTH,
-                     bucket_frames: int = 8192,
+                     bucket_frames: int = fl_jax.BUCKET_FRAMES,
                      chunk: int = 0) -> None:
     """Compress a shared input file across all hosts/chips; process 0
     writes the container (rank-ordered streaming merge, bounded memory)."""
@@ -324,7 +325,8 @@ def _file_size(path: str) -> int:
 
 
 def compress_rl_file(input_path: str, output_path: str,
-                     bucket_frames: int = 8192, chunk: int = 0) -> None:
+                     bucket_frames: int = fl_jax.BUCKET_FRAMES,
+                     chunk: int = 0) -> None:
     """RL analog of :func:`compress_fl_file` — per-process chunk encode,
     sizes-only exchange, rank-ordered streaming to the process-0 container
     write.  Shard boundaries may split runs (lossless; documented
@@ -387,7 +389,8 @@ def compress_rl_file(input_path: str, output_path: str,
 
 def decompress_fl_file(input_path: str, output_path: str,
                        frame_length: int = FRAME_LENGTH,
-                       bucket_frames: int = 8192, chunk: int = 0) -> None:
+                       bucket_frames: int = fl_jax.BUCKET_FRAMES,
+                     chunk: int = 0) -> None:
     """Distributed multi-host decompression (the reference decompresses on
     one CPU thread for every distributed method, ``main.cu:131-169``).
 
@@ -428,11 +431,7 @@ def decompress_fl_file(input_path: str, output_path: str,
     # frame is globally last), so one widths sum gives the start.
     head = _HEADER.size + bits_size
     v0 = int(bits_all[:f0].astype(np.int64).sum()) * frame_length // 8
-    counts = np.minimum(
-        my_n - np.arange(f1 - f0, dtype=np.int64) * frame_length,
-        frame_length)
-    my_vbytes = int(((bits_all[f0:f1].astype(np.int64) * counts + 7)
-                     // 8).sum())
+    my_vbytes = fl_jax.values_size(bits_all[f0:f1], my_n, frame_length)
     if v0 + my_vbytes > values_size:
         raise IOError("[FileIO] corrupt FL container: packed stream "
                       "shorter than the widths imply")

@@ -5,7 +5,7 @@ memory (``loadFile``/``loadFileMpi``; its SLURM config caps at 16 GB RAM).
 Frame alignment (SURVEY.md finding #3) makes streaming trivial by design:
 any frame-multiple chunking of the input produces byte-identical output to
 a whole-file encode, so this driver processes fixed-size chunks —
-device-encode fields, host-fold, append — with memory bounded by one chunk
+encode on the device, append — with memory bounded by one chunk
 regardless of file size.  Decompression streams symmetrically (per-chunk
 frame ranges are computed from the widths header).
 
@@ -25,8 +25,8 @@ from .container import _HEADER
 from .ops import fl_jax
 from .ops.bitpack import FRAME_LENGTH
 
-# frame-aligned chunk; multiple of the Pallas tile (1 MiB) so the fast
-# kernel path is used for every chunk
+# frame-aligned default chunk (the pipeline depth and this size are still
+# to be priced on the card: ROADMAP A6)
 DEFAULT_CHUNK = 256 << 20
 
 
@@ -56,7 +56,7 @@ def compress_fl_stream(input_path: str, output_path: str,
                         return
                     yield np.frombuffer(buf, np.uint8)
 
-            # software-pipelined (round 5): chunk k+1's read + H2D +
+            # software-pipelined: chunk k+1's read + H2D +
             # kernel dispatch overlap chunk k's D2H + spool — the drain
             # of one chunk happens while the next is in flight
             # (fl_jax.encode_chunks)
@@ -140,17 +140,14 @@ def decompress_fl_stream(input_path: str, output_path: str,
                              bits_all.size - state["fstart"])
                     n_out = min(chunk, input_size - state["produced"])
                     f0 = state["fstart"]
-                    b = bits_all[f0:f0 + nf].astype(np.int64)
-                    counts = np.minimum(
-                        n_out - np.arange(nf, dtype=np.int64)
-                        * frame_length, frame_length)
-                    vbytes = int(((b * counts + 7) // 8).sum())
+                    vbytes = fl_jax.values_size(bits_all[f0:f0 + nf], n_out,
+                                                frame_length)
                     values = np.frombuffer(fin.read(vbytes), np.uint8)
                     state["fstart"] += nf
                     state["produced"] += n_out
                     yield (n_out, bits_all[f0:f0 + nf], values)
 
-            # software-pipelined (round 5): the next chunk's read + H2D
+            # software-pipelined: the next chunk's read + H2D
             # + kernel dispatch overlap this chunk's D2H + file write
             for out in fl_jax.decode_chunks(parts(), frame_length):
                 out.tofile(fout)

@@ -4,7 +4,7 @@ The reference instruments every phase of every path with a small timer
 hierarchy (``/root/reference/src/timers/``): wall-clock ``CpuTimer``,
 CUDA-event ``GpuTimer`` and throughput-reporting ``CpuTimerWithTransfer``
 (auto-scaled B/s…GB/s, ``cpu_timer_with_transfer.cu:16-40``).  Same report
-format here, TPU-native measurement: device phases time a
+format here; device phases time a
 ``block_until_ready`` boundary (the XLA analog of CUDA events for
 whole-phase timing), and `jax.profiler` traces are a context-manager away
 for kernel-level breakdowns.
@@ -73,7 +73,8 @@ class Timer:
         prefix = f"[Rank {self.rank}] " if self.rank >= 0 else ""
         line = f"{prefix}[TIMER] {self.name}: {self.elapsed_s * 1e3:.3f} ms"
         if self.transfer_bytes:
-            line += f" ({_format_rate(self.transfer_bytes, self.elapsed_s)})"
+            line += (f" ({_format_rate(self.transfer_bytes, self.elapsed_s)},"
+                     f" {self.transfer_bytes} B)")
         self.printer(line)
 
 
@@ -136,7 +137,7 @@ def stage(name: str, nbytes: int = 0, result=None):
 @contextlib.contextmanager
 def profiler_trace(logdir: str | None):
     """Optional `jax.profiler` trace around a phase (kernel-level view in
-    TensorBoard/XProf — the TPU-native upgrade over per-phase timers)."""
+    TensorBoard/XProf, on top of the per-phase timers)."""
     if logdir is None:
         yield
         return

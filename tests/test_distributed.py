@@ -1,9 +1,8 @@
 """Multi-chip distributed compression tests on the virtual 8-device CPU mesh.
 
 These exercise the real sharding logic — `shard_map` over a 1-D dp mesh,
-ICI all-gather merge, rank-ordered host assembly — without TPU hardware
-(SURVEY.md §4(d): TPU-native replacement for the reference's untestable
-multi-node story).
+the on-device all-gather merge, rank-ordered host assembly — without GPUs
+(SURVEY.md §4(d): the reference's multi-node story was untestable).
 """
 
 import jax
@@ -47,7 +46,7 @@ def test_fl_distributed_equals_single(mesh):
 
 
 def test_fl_ici_merge_matches_host_merge(mesh):
-    """The all-gather (NCCL-analog) path must produce the identical
+    """The on-device all-gather (fl-nccl) path must produce the identical
     container payload as the host-side (MPI-analog) merge."""
     data = _mk(1, 128 * 8 * 64 + 777)
     comp_ici = dist.compress_fl_ici(data, mesh, bucket_frames=64)
@@ -119,181 +118,22 @@ def test_rl_distributed_deterministic_given_shard_plan(mesh):
         dist.decompress_rl(d8, mesh, bucket=1024), const)
 
 
-@pytest.mark.slow
-def test_sharded_dense_decode_has_no_shape_cliffs(monkeypatch):
-    """plan_shards aligns shard buffers to every dense kernel block, so
-    decompress_fl takes the DENSE sharded path (never the silent
-    host-unfold or general-window fallbacks) for adversarial
-    (device count x size x bucket) combinations — VERDICT r3 weak #6."""
-    from fl_rl_compression_mpi_tpu.ops import fl_dense_pallas, fl_jax
-    monkeypatch.setattr(fl_dense_pallas, "DENSE_TILE_R", 8)
-    monkeypatch.setattr(fl_dense_pallas, "DENSE_DEC_TILE_R", 8)
-    monkeypatch.setattr(fl_dense_pallas, "DENSE_UNIFORM_TILE_R", 16)
-    monkeypatch.setattr(
-        fl_jax, "_use_dense",
-        lambda fl, nw: fl == 128
-        and nw % (fl_dense_pallas.DENSE_TILE_R * 128) == 0)
-    monkeypatch.setattr(
-        fl_jax, "_use_dense_dec",
-        lambda fl, nw: fl == 128
-        and nw % (fl_dense_pallas.DENSE_DEC_TILE_R * 128) == 0)
-    calls = {"dense": 0, "uniform": 0}
-    orig = dist.fl_decompress_sharded_dense
-    orig_u = dist.fl_decompress_sharded_dense_uniform
-
-    def spy(*a, **k):
-        calls["dense"] += 1
-        return orig(*a, **k)
-
-    def spy_u(*a, **k):
-        calls["uniform"] += 1
-        return orig_u(*a, **k)
-
-    monkeypatch.setattr(dist, "fl_decompress_sharded_dense", spy)
-    monkeypatch.setattr(dist, "fl_decompress_sharded_dense_uniform", spy_u)
-    rng = np.random.default_rng(7)
-    # odd buckets x device counts that used to trip rows_shard % R / Ru
-    for n_dev, nbytes, bucket in ((2, 128 * 100 + 17, 33),
-                                  (3, 128 * 65 + 1, 7),
-                                  (5, 128 * 200 + 128, 13)):
-        sub = dist.make_mesh(n_dev)
-        data = rng.integers(0, 256, nbytes).astype(np.uint8)
-        # per-frame random widths 1..8 so NO tile is uniform (the
-        # general network, not the single-width decoder, must be hit)
-        nfr = -(-nbytes // 128)
-        wf = rng.integers(1, 9, nfr)
-        for f in range(nfr):
-            lo, hi = f * 128, min((f + 1) * 128, nbytes)
-            data[lo:hi] &= np.uint8((1 << wf[f]) - 1)
-            data[lo] = np.uint8(1 << (wf[f] - 1))
-        before = calls["dense"]
-        comp = dist.compress_fl(data, sub, bucket_frames=bucket)
-        bits_g, values_g = fl_numpy.encode(data)
-        np.testing.assert_array_equal(comp.bits, bits_g)
-        np.testing.assert_array_equal(comp.values, values_g)
-        out = dist.decompress_fl(comp, sub, bucket_frames=bucket)
-        np.testing.assert_array_equal(out, data)
-        assert calls["dense"] == before + 1, (
-            "dense sharded decode path not taken (silent fallback)")
-    # uniform widths header + adversarial bucket: the single-width
-    # sharded block-walk decoder must be reachable too
-    sub = dist.make_mesh(3)
-    udata = rng.integers(0, 16, 128 * 70 + 5).astype(np.uint8)
-    udata[::128] |= 8  # pin every frame at width 4
-    comp = dist.compress_fl(udata, sub, bucket_frames=11)
-    out = dist.decompress_fl(comp, sub, bucket_frames=11)
-    np.testing.assert_array_equal(out, udata)
-    assert calls["uniform"] >= 1, (
-        "uniform sharded decode path not taken (silent fallback)")
-
-
-@pytest.mark.slow
-def test_round5_dispatch_layers_sharded(monkeypatch):
-    """Round-5 dist layers (VERDICT r4 item 8): encode-side stream-plan
-    speculation under shard_map (hit + flag-miss fallback), the
-    constant closed-form host APIs, and the shard_map'd constant
-    verify-and-broadcast kernels — all byte-exact vs fl_numpy."""
-    import jax
-    import jax.numpy as jnp
-
-    from fl_rl_compression_mpi_tpu.ops import fl_dense_pallas, fl_jax
-    monkeypatch.setattr(fl_dense_pallas, "DENSE_TILE_R", 8)
-    monkeypatch.setattr(fl_dense_pallas, "DENSE_DEC_TILE_R", 8)
-    monkeypatch.setattr(fl_dense_pallas, "DENSE_UNIFORM_TILE_R", 8)
-    monkeypatch.setattr(
-        fl_jax, "_use_dense",
-        lambda fl, nw: fl == 128 and nw % 1024 == 0)
-    monkeypatch.setattr(fl_jax, "_use_dense_dec", fl_jax._use_dense)
-    n_dev = 4
-    mesh = dist.make_mesh(n_dev)
-    rng = np.random.default_rng(11)
-    total = 128 * 32 * n_dev + 99
-    plan = dist.plan_shards(total, n_dev, bucket_frames=32)
-    nfs = jnp.asarray([-(-int(x) // 128) for x in plan.ns], jnp.int32)
-
-    # (a) plan HIT: widths in {7,8} -> narrow plan holds on every shard
-    data_p = rng.integers(0, 256, total, np.uint8)
-    dp2 = data_p[: total // 128 * 128].reshape(-1, 128)
-    dp2[::2] &= 0x7F
-    dp2[::2, 0] |= 0x40
-    dp2[1::2, 0] |= 0x80
-    wq, nq = fl_dense_pallas.host_probe_route_plan(data_p)
-    assert wq > 1 or nq is not None
-    wd_p = jnp.asarray(dist.shard_host_data(data_p, plan).view(np.uint32))
-    _, _, _, flags = dist.fl_compress_sharded_dense(
-        mesh, wd_p, nfs, wmin=wq, route_nbits=nq)
-    assert int(np.asarray(jax.device_get(flags)).sum()) == 0
-    comp = dist.compress_fl(data_p, mesh, bucket_frames=32)
-    bg, vg = fl_numpy.encode(data_p)
-    np.testing.assert_array_equal(comp.bits, bg)
-    np.testing.assert_array_equal(comp.values, vg)
+@pytest.mark.parametrize("total", [128 * 8 * 64, 128 * 8 * 64 + 777],
+                         ids=["aligned", "ragged"])
+@pytest.mark.parametrize("method", ["compress_fl", "compress_fl_ici"])
+def test_dense_sharded_merge_matches_golden(mesh, method, total):
+    """Both merges of the per-shard packed streams (host prefix pulls, and
+    the on-device prefix all-gather) give the golden container, whether
+    the shards end on a frame or the last one is ragged; the sharded dense
+    decode restores the input."""
+    rng = np.random.default_rng(total)
+    data = rng.integers(0, 256, total).astype(np.uint8)
+    frames = data[: total // 128 * 128].reshape(-1, 128)
+    frames &= ((1 << rng.integers(1, 9, frames.shape[0])) - 1).astype(
+        np.uint8)[:, None]
+    comp = getattr(dist, method)(data, mesh, bucket_frames=64)
+    bits_g, values_g = fl_numpy.encode(data)
+    np.testing.assert_array_equal(comp.bits, bits_g)
+    np.testing.assert_array_equal(comp.values, values_g)
     np.testing.assert_array_equal(
-        dist.decompress_fl(comp, mesh, bucket_frames=32), data_p)
-
-    # (b) flag MISS: wide head (plan speculated narrow), width-1 tail
-    # frames blow the routing bound -> flags trip, compress_fl re-runs
-    # the default program, still byte-exact
-    data_m = rng.integers(0, 256, total, np.uint8)
-    dm2 = data_m[: total // 128 * 128].reshape(-1, 128)
-    dm2[:, 0] |= 0x80
-    dm2[dm2.shape[0] // 2:] &= 1
-    wq_m, nq_m = fl_dense_pallas.host_probe_route_plan(data_m)
-    assert wq_m > 1 or nq_m is not None
-    wd_m = jnp.asarray(dist.shard_host_data(data_m, plan).view(np.uint32))
-    _, _, _, flags_m = dist.fl_compress_sharded_dense(
-        mesh, wd_m, nfs, wmin=wq_m, route_nbits=nq_m)
-    assert int(np.asarray(jax.device_get(flags_m)).sum()) > 0
-    comp_m = dist.compress_fl(data_m, mesh, bucket_frames=32)
-    bg_m, vg_m = fl_numpy.encode(data_m)
-    np.testing.assert_array_equal(comp_m.bits, bg_m)
-    np.testing.assert_array_equal(comp_m.values, vg_m)
-
-    # (c) constant closed form on the host APIs (no device round trip)
-    data_c = np.full(total, 9, np.uint8)
-    bg_c, vg_c = fl_numpy.encode(data_c)
-    for compress in (dist.compress_fl, dist.compress_fl_ici):
-        comp_c = compress(data_c, mesh, bucket_frames=32)
-        np.testing.assert_array_equal(comp_c.bits, bg_c)
-        np.testing.assert_array_equal(comp_c.values, vg_c)
-    np.testing.assert_array_equal(
-        dist.decompress_fl(comp_c, mesh, bucket_frames=32), data_c)
-
-    # (d) shard_map'd verify-and-broadcast constant kernels (device-
-    # resident pipeline path): exact bytes, flags authoritative
-    total_c = 128 * 32 * n_dev
-    plan_c = dist.plan_shards(total_c, n_dev, bucket_frames=32)
-    data_c2 = np.full(total_c, 9, np.uint8)
-    cb, fbc = fl_dense_pallas.host_probe_constant(data_c2, total_c)
-    wd_c = jnp.asarray(dist.shard_host_data(data_c2, plan_c).view(
-        np.uint32))
-    nfs_c = jnp.asarray([-(-int(x) // 128) for x in plan_c.ns],
-                        jnp.int32)
-    b_c, d_c, flags_c = dist.fl_compress_sharded_dense_constant(
-        mesh, wd_c, nfs_c, cb, fbc)
-    assert int(np.asarray(jax.device_get(flags_c)).sum()) == 0
-    vg_c2 = fl_numpy.encode(data_c2)[1]
-    vsz_sh = np.asarray([int(x) * fbc // 8 for x in plan_c.ns], np.int32)
-    dense_h = np.asarray(jax.device_get(d_c))
-    vparts = [np.ascontiguousarray(dense_h[i]).view(np.uint8)[: vsz_sh[i]]
-              for i in range(n_dev)]
-    np.testing.assert_array_equal(np.concatenate(vparts), vg_c2)
-    rows_shard = plan_c.shard_npad // 512
-    need = rows_shard // 8 * fbc
-    d3 = np.zeros((n_dev, need, 128), np.uint32)
-    for i in range(n_dev):
-        d3[i].reshape(-1).view(np.uint8)[: vsz_sh[i]] = vparts[i]
-    out_c, dflags = dist.fl_decompress_sharded_dense_constant(
-        mesh, jnp.asarray(d3), jnp.asarray(vsz_sh), cb, fbc, rows_shard)
-    assert int(np.asarray(jax.device_get(dflags)).sum()) == 0
-    out_b = np.ascontiguousarray(np.asarray(
-        jax.device_get(out_c))).view(np.uint8).reshape(n_dev, -1)
-    np.testing.assert_array_equal(
-        np.concatenate([out_b[i, : plan_c.ns[i]] for i in range(n_dev)]),
-        data_c2)
-    # corrupted shard trips the encode flag
-    bad = data_c2.copy()
-    bad[total_c // 2] ^= 0xFF
-    wd_b = jnp.asarray(dist.shard_host_data(bad, plan_c).view(np.uint32))
-    _, _, flags_b = dist.fl_compress_sharded_dense_constant(
-        mesh, wd_b, nfs_c, cb, fbc)
-    assert int(np.asarray(jax.device_get(flags_b)).sum()) > 0
+        dist.decompress_fl(comp, mesh, bucket_frames=64), data)

@@ -11,7 +11,7 @@ import pytest
 from fl_rl_compression_mpi_tpu.native import get_native
 from fl_rl_compression_mpi_tpu.ops import fl_jax, fl_numpy, rl_jax, rl_numpy
 
-# Heavy interpret-mode / multi-process suite: slow tier (see conftest).
+# Heavy randomized suite: slow tier (see conftest).
 pytestmark = pytest.mark.slow
 
 
@@ -82,58 +82,3 @@ def test_fl_frame_lengths(frame_length):
         bits_n, values_n = nat.fl_encode(data, frame_length)
         np.testing.assert_array_equal(bits_n, bits_g)
         np.testing.assert_array_equal(values_n, values_g)
-
-
-@pytest.mark.parametrize("seed", range(6))
-def test_dense_dispatch_stack_fuzz(seed, monkeypatch):
-    """Randomized differential fuzz of the FULL dense dispatch stack
-    (constant → globally-uniform → plan-speculative general → default
-    general, each with its authoritative flag), forced on in interpret
-    mode with tiny tiles.  Streams are built to straddle dispatch
-    boundaries: constant prefixes that break later, width floors that
-    are violated near the end, uniform runs with a mixed tail."""
-    from fl_rl_compression_mpi_tpu.ops import fl_dense_pallas
-
-    monkeypatch.setattr(fl_dense_pallas, "DENSE_TILE_R", 8)
-    monkeypatch.setattr(fl_dense_pallas, "DENSE_DEC_TILE_R", 8)
-    monkeypatch.setattr(fl_dense_pallas, "DENSE_UNIFORM_TILE_R", 8)
-    monkeypatch.setattr(fl_jax, "_use_dense",
-                        lambda L, nw: L == 128 and nw % 1024 == 0)
-    monkeypatch.setattr(fl_jax, "_use_dense_dec", fl_jax._use_dense)
-
-    g = np.random.default_rng(7000 + seed)
-    tile = 8 * 512
-    for _ in range(4):
-        kind = int(g.integers(0, 6))
-        size = int(g.integers(1, 6 * tile))
-        if kind == 0:                      # constant (any byte)
-            data = np.full(size, int(g.integers(0, 256)), np.uint8)
-        elif kind == 1:                    # constant prefix, then noise
-            data = np.full(size, int(g.integers(0, 16)), np.uint8)
-            if size > tile:
-                data[tile + int(g.integers(0, size - tile)):] ^= 1
-        elif kind == 2:                    # width floor violated late
-            data = (g.integers(0, 16, size) | 8).astype(np.uint8)
-            data[-1:] = 1
-        elif kind == 3:                    # uniform run + mixed tail
-            b = int(g.integers(1, 9))
-            data = g.integers(0, 1 << b, size).astype(np.uint8)
-            data[::128][: size // 256] = (1 << (b - 1))
-            if size > 2 * tile:
-                data[2 * tile:] = g.integers(0, 256, size - 2 * tile)
-        elif kind == 4:                    # random widths per frame
-            data = g.integers(0, 256, size).astype(np.uint8)
-            nfr = size // 128
-            if nfr:
-                wf = g.integers(1, 9, nfr)
-                m2 = data[: nfr * 128].reshape(nfr, 128)
-                m2 &= ((1 << wf) - 1).astype(np.uint8)[:, None]
-        else:                              # pure noise
-            data = g.integers(0, 256, size).astype(np.uint8)
-        bits_g, values_g = fl_numpy.encode(data)
-        bits_d, values_d = fl_jax.encode(data, bucket_frames=32)
-        np.testing.assert_array_equal(bits_d, bits_g)
-        np.testing.assert_array_equal(values_d, values_g)
-        np.testing.assert_array_equal(
-            fl_jax.decode(data.size, bits_d, values_d,
-                          bucket_frames=32), data)

@@ -20,7 +20,7 @@ import pytest
 from fl_rl_compression_mpi_tpu import container
 from fl_rl_compression_mpi_tpu.ops import fl_numpy
 
-# Heavy interpret-mode / multi-process suite: slow tier (see conftest).
+# Multi-process suite: slow tier (see conftest).
 pytestmark = pytest.mark.slow
 
 WORKER = textwrap.dedent("""

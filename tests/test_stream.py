@@ -95,29 +95,39 @@ def test_stream_cli_verify(tmp_path, capsys):
 
 
 def test_pipelined_chunk_codec_dense_paths(monkeypatch):
-    """Round-5 software-pipelined chunked codec (encode_chunks /
-    decode_chunks): byte-exact vs fl_numpy across chunk classes —
-    constant (closed form at submit), uniform (speculative kernel,
-    flag checked at drain), uniform-miss (head uniform, tail not:
-    drain-time default re-run), mixed general, ragged tail."""
-    import numpy as np
+    """Software-pipelined chunked codec (encode_chunks / decode_chunks) on
+    the dense route: byte-exact vs fl_numpy across chunk classes —
+    constant (closed form at submit), uniform w4, uniform with a narrower
+    tail frame, mixed widths, ragged tail — and every non-constant chunk
+    is placed on the device (no host fold)."""
+    from fl_rl_compression_mpi_tpu.ops import fields, fl_jax, fl_numpy
+    calls = {"enc": 0, "dec": 0}
+    enc, dec = fl_jax.fl_encode_dense, fl_jax.fl_decode_dense
 
-    from fl_rl_compression_mpi_tpu.ops import (fl_dense_pallas, fl_jax,
-                                               fl_numpy)
-    monkeypatch.setattr(fl_dense_pallas, "DENSE_TILE_R", 8)
-    monkeypatch.setattr(fl_dense_pallas, "DENSE_DEC_TILE_R", 8)
-    monkeypatch.setattr(fl_dense_pallas, "DENSE_UNIFORM_TILE_R", 8)
-    monkeypatch.setattr(
-        fl_jax, "_use_dense",
-        lambda fl, nw: fl == 128 and nw % 1024 == 0)
-    monkeypatch.setattr(fl_jax, "_use_dense_dec", fl_jax._use_dense)
+    def spy_enc(*a, **k):
+        calls["enc"] += 1
+        return enc(*a, **k)
+
+    def spy_dec(*a, **k):
+        calls["dec"] += 1
+        return dec(*a, **k)
+
+    def no_host_placement(*a, **k):
+        raise AssertionError("dense route must not fold/unfold on host")
+
+    monkeypatch.setattr(fl_jax, "fl_encode_dense", spy_enc)
+    monkeypatch.setattr(fl_jax, "fl_decode_dense", spy_dec)
+    monkeypatch.setattr(fields, "fold", no_host_placement)
+    monkeypatch.setattr(fields, "unfold", no_host_placement)
     rng = np.random.default_rng(5)
     ck = 128 * 64                       # frame-aligned chunk size
     const = np.full(ck, 9, np.uint8)
     uni = (rng.integers(0, 16, ck, np.uint8) | 8)      # uniform w4
     miss = uni.copy()
     miss[-128:] = 1                     # tail frame width 1 -> flag trips
-    mixed = rng.integers(0, 256, ck, np.uint8)
+    mixed = rng.integers(0, 256, ck, np.uint8)   # per-frame widths 1..8
+    mixed.reshape(-1, 128)[:] &= ((1 << rng.integers(1, 9, ck // 128)) - 1
+                                  ).astype(np.uint8)[:, None]
     tail = rng.integers(0, 64, 777, np.uint8)          # ragged last
     chunks = [const, uni, miss, mixed, tail]
     data = np.concatenate(chunks)
@@ -140,6 +150,7 @@ def test_pipelined_chunk_codec_dense_paths(monkeypatch):
         voffs += vb
     outs = list(fl_jax.decode_chunks(iter(dparts), bucket_frames=8))
     np.testing.assert_array_equal(np.concatenate(outs), data)
+    assert calls == {"enc": 4, "dec": 4}
 
 
 def test_encode_chunks_rejects_misaligned_middle_chunk():
@@ -158,11 +169,11 @@ def test_encode_chunks_rejects_misaligned_middle_chunk():
 
 
 def test_chunked_codec_random_split_equivalence():
-    """Property fuzz (round 5): for ANY frame-aligned chunking of a
+    """Property fuzz: for ANY frame-aligned chunking of a
     stream mixing constant spans, w8 spans, and mixed-width content,
     encode_chunks produces bit-identical (bits, values) to the
     whole-buffer golden, and decode_chunks inverts it exactly (both
-    XLA-path here; the dense interpret twin lives above)."""
+    on the dense route)."""
     from fl_rl_compression_mpi_tpu.ops import fl_jax, fl_numpy
     rng = np.random.default_rng(13)
     for trial in range(6):
